@@ -1,0 +1,11 @@
+"""Config system: dataclass mirrors of the reference argparse hierarchy."""
+
+from multimodal_similarity_tpu_torch.configs.base import (
+    BaseConfig,
+    TrainConfig,
+    load_session_list,
+    write_configure_to_file,
+)
+
+__all__ = ["BaseConfig", "TrainConfig", "load_session_list",
+           "write_configure_to_file"]

@@ -1,0 +1,97 @@
+"""Temporal encoders (``torch.nn``).
+
+Counterparts of the JAX package's ``models/encoders.py``: the 1x1 "conv"
+embedding is a Linear over the channel axis, the LSTM is the hand-written
+TF cell (models/lstm.py), and dropout sits where the reference put it (input
+dropout on the recurrent encoders).  Inputs keep the JAX layout
+``[B, S, ...]`` with channels last.  Weights are Xavier-uniform with zero
+bias, as ``tf.contrib.layers.xavier_initializer`` in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from multimodal_similarity_tpu_torch.models.lstm import LSTM
+
+Generator = Optional[torch.Generator]
+
+
+def dense(in_features: int, out_features: int,
+          generator: Generator = None) -> nn.Linear:
+    """Linear layer with Xavier-uniform weight and zero bias."""
+    layer = nn.Linear(in_features, out_features)
+    nn.init.xavier_uniform_(layer.weight, generator=generator)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+class Dropout(nn.Module):
+    """Inverted dropout drawing its mask from an explicit generator, which
+    must live on the inputs' device (``None``: the global generator)."""
+
+    def __init__(self, rate: float, generator: Generator = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+class RTSN(nn.Module):
+    """Linear embed + LSTM over segments, last output."""
+
+    def __init__(self, n_seg: int = 3, emb_dim: int = 128, n_input: int = 8,
+                 keep_prob: float = 1.0, generator: Generator = None,
+                 dropout_generator: Generator = None):
+        super().__init__()
+        self.n_seg, self.emb_dim, self.n_input = n_seg, emb_dim, n_input
+        self.fc1 = dense(n_input, emb_dim, generator)
+        self.dropout = Dropout(1.0 - keep_prob, dropout_generator)
+        self.lstm = LSTM(emb_dim, emb_dim, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        h = torch.relu(self.fc1(x.reshape(b * self.n_seg, self.n_input)))
+        h = self.dropout(h.reshape(b, self.n_seg, self.emb_dim))
+        outputs, _ = self.lstm(h)
+        return outputs[:, -1]
+
+
+class ConvEmbed(nn.Module):
+    """relu(1x1 conv) channel embedding: [..., n_h, n_w, n_input] ->
+    [..., n_h * n_w * n_C]."""
+
+    def __init__(self, n_input: int = 1536, n_C: int = 20,
+                 generator: Generator = None):
+        super().__init__()
+        self.conv1x1 = dense(n_input, n_C, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.conv1x1(x)).flatten(-3)
+
+
+class ConvRTSN(nn.Module):
+    """1x1 conv embed + LSTM over segments: the reference's video encoder."""
+
+    def __init__(self, n_seg: int = 3, n_C: int = 20, emb_dim: int = 128,
+                 n_input: int = 1536, n_h: int = 8, n_w: int = 8,
+                 keep_prob: float = 1.0, generator: Generator = None,
+                 dropout_generator: Generator = None):
+        super().__init__()
+        self.embed = ConvEmbed(n_input, n_C, generator)
+        self.dropout = Dropout(1.0 - keep_prob, dropout_generator)
+        self.lstm = LSTM(n_h * n_w * n_C, emb_dim, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.dropout(self.embed(x))                  # [B, S, h*w*C]
+        outputs, _ = self.lstm(h)
+        return outputs[:, -1]

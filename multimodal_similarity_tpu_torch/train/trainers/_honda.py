@@ -1,0 +1,88 @@
+"""Shared scaffolding for the Honda-track trainers: dataset preparation,
+the session loader, the validation preload, the result dir, logging and
+checkpointing.  Single modality, single process."""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+from multimodal_similarity_tpu_torch.configs import TrainConfig
+from multimodal_similarity_tpu_torch.data import (
+    SessionBatchLoader,
+    load_validation_set,
+    prepare_dataset,
+    tsn_prepare_input,
+    tsn_prepare_input_test,
+)
+from multimodal_similarity_tpu_torch.train.checkpoints import (
+    CheckpointManager)
+from multimodal_similarity_tpu_torch.train.trainer import setup_experiment
+from multimodal_similarity_tpu_torch.utils.logging import (
+    DeferredStepLogs,
+    MetricsLogger,
+    write_projector_metadata,
+)
+
+
+class HondaExperiment:
+    """Loader + validation arrays + bookkeeping for one experiment run."""
+
+    def __init__(self, cfg: TrainConfig, *,
+                 event_budget: Optional[int] = None,
+                 result_dir: Optional[str] = None):
+        self.cfg = cfg
+        feat = cfg.feat if isinstance(cfg.feat, str) else cfg.feat[0]
+        if not isinstance(cfg.feat, str) and len(cfg.feat) > 1:
+            raise NotImplementedError(
+                "multimodal datasets are not ported yet (ROADMAP slice 5)")
+        self.result_dir = setup_experiment(cfg, result_dir=result_dir)
+        self.logger = MetricsLogger(self.result_dir)
+        self.ckpt = CheckpointManager(self.result_dir, cfg.name)
+        self.event_budget = event_budget or cfg.event_per_batch
+
+        # the labeled sessions
+        self.train_set = prepare_dataset(
+            cfg.feature_root, cfg.train_session, feat, cfg.label_root,
+            cfg.label_type)[: cfg.label_num]
+        self.batch_per_epoch = len(self.train_set) // cfg.sess_per_batch
+        if self.batch_per_epoch < 1:
+            raise ValueError(f"{len(self.train_set)} train sessions < "
+                             f"sess_per_batch={cfg.sess_per_batch}")
+        self.loader = SessionBatchLoader(
+            self.train_set, sess_per_batch=cfg.sess_per_batch,
+            event_budget=self.event_budget,
+            prepare_funcs=[functools.partial(tsn_prepare_input,
+                                             cfg.num_seg)],
+            seed=cfg.seed)
+
+        val_set = prepare_dataset(cfg.feature_root, cfg.val_session, feat,
+                                  cfg.label_root, cfg.label_type)
+        self.val_feats, self.val_labels, val_sess, val_bound = \
+            load_validation_set(val_set, functools.partial(
+                tsn_prepare_input_test, cfg.num_seg))
+        write_projector_metadata(self.result_dir, self.val_labels, val_sess,
+                                 val_bound)
+        self._deferred = DeferredStepLogs(
+            self.logger, flush_every=cfg.log_flush_every,
+            echo=not cfg.silent_mode)
+
+    def log(self, step: int, scalars, echo: str = ""):
+        self.flush_logs()  # keep the JSONL stream step-ordered
+        self.logger.log(step, {k: float(v) for k, v in scalars.items()})
+        if echo and not self.cfg.silent_mode:
+            print(echo)
+
+    def log_deferred(self, step: int, device_scalars, host_scalars=None,
+                     echo_fn=None):
+        """``log`` without the per-step device-to-host readback: the step's
+        device scalars are queued and read every --log_flush_every steps."""
+        self._deferred.append(step, device_scalars, host_scalars, echo_fn)
+
+    def flush_logs(self):
+        """Block until every queued step's scalars are logged."""
+        self._deferred.flush()
+
+    def close(self):
+        self._deferred.close()
+        self.logger.close()
