@@ -16,12 +16,23 @@ Phases, each fatal on failure (no error is caught):
    trained model's embeddings; the gradient through the autograd wrapper
    against a dense autograd oracle; kernel, plain, library
    (``torch.matmul``) and bound times;
-4. trainer: the port's batch-hard trainer, ConvRTSN at full width (3 TSN
+4. lifted kernels: K4 (``lifted_fwd``), K5 (``lifted_bwd``) and K6
+   (``lifted_fwd_tri``) against their plain PyTorch versions on the card,
+   at the trainer's shape (N=512, d=128) in f32 and bf16, unnormalised
+   inputs for K4/K5, ragged N and d with a valid mask and 64-bit labels,
+   rows with no valid negative, N=8192 with d=128, K5 after both forwards,
+   and the gradient through ``lifted_loss_fused`` against dense autograd
+   (bounded and not); kernel, plain, library and bound times;
+5. trainer: the port's batch-hard trainer, ConvRTSN at full width (3 TSN
    segments of 8x8x1536 resnet maps, n_C=20, emb_dim=128, class-balanced
    batch 512, event budget 1000, 3 sessions per batch, Adam eps=0.1) on a
    synthetic Honda directory with random weights, 2 epochs; asserts finite
    losses, one K1 launch per optimizer step and a K2 launch per validation,
-   and the device retrieval metrics against the NumPy oracle.
+   and the device retrieval metrics against the NumPy oracle;
+6. the lifted trainer at the same width on the same directory: 2 epochs
+   normalised (one K6 launch per step and per validation, one K5 launch per
+   step, no K4), then 1 epoch with ``--no_normalized`` (K4 in place of K6),
+   with the same metric checks, and a step breakdown of each trainer.
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -36,12 +47,21 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "multimodal_similarity_tpu_torch/csrc/batch_hard.cu"
+SOURCES = {
+    "batch_hard_stats_idx": "multimodal_similarity_tpu_torch/csrc/batch_hard.cu",
+    "batch_hard_stats": "multimodal_similarity_tpu_torch/csrc/batch_hard.cu",
+    "lifted_fwd": "multimodal_similarity_tpu_torch/csrc/lifted.cu",
+    "lifted_bwd": "multimodal_similarity_tpu_torch/csrc/lifted.cu",
+    "lifted_fwd_tri": "multimodal_similarity_tpu_torch/csrc/lifted.cu",
+}
 REPLACES = {
     "batch_hard_stats_idx":
         "multimodal_similarity_tpu/ops/pallas/batch_hard.py:110",
     "batch_hard_stats":
         "multimodal_similarity_tpu/ops/pallas/batch_hard.py:151",
+    "lifted_fwd": "multimodal_similarity_tpu/ops/pallas/lifted.py:85",
+    "lifted_bwd": "multimodal_similarity_tpu/ops/pallas/lifted.py:126",
+    "lifted_fwd_tri": "multimodal_similarity_tpu/ops/pallas/lifted_tri.py:93",
 }
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -50,6 +70,23 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # subtract, clamp, the positive and negative selects, the max and min
 # compares and the negative-count add
 EPILOGUE_OPS = 8
+# the lifted kernels' f32 epilogue operations per pair they visit, beside
+# their exponentials (counted apart, at the SFU rate):
+#  K4: norm add, -2x fused subtract, clamp, label compare, the v_pos
+#      select and penalty, v_neg, the two max compares, the two exp
+#      arguments and sum adds, the negative-count add: 14
+#  K5, per ordered pair and direction: norm add, fused subtract, clamp,
+#      label compare, select, exp argument, the g multiply and the add
+#      into C, the rowsum add: 9
+#  K6, per visited pair: norm add, fused subtract, clamp, label compare,
+#      the P and Ng selects, exp argument, and six weighted adds (three
+#      per side): 13
+LIFTED_EPILOGUE_OPS = {"lifted_fwd": 14, "lifted_bwd": 18,
+                       "lifted_fwd_tri": 13}
+# special-function units: 16 results per SM per clock (Hopper), times the
+# SMs and the card's maximum SM clock read from nvidia-smi
+SFU_PER_SM_CLOCK = 16
+MARGIN = 0.2
 
 
 def fail(msg):
@@ -268,6 +305,301 @@ def kernel_phase():
     return main, main_err
 
 
+def sfu_rate():
+    """Exponentials per second: SFU_PER_SM_CLOCK x SMs x the maximum SM
+    clock that nvidia-smi reports."""
+    import torch
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout
+    mhz = float(out.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_SM_CLOCK * sms * mhz * 1e6, sms, mhz
+
+
+def lifted_counts(ops):
+    """(positive pairs, valid negative pairs) over the ordered pairs of
+    this input: the entries whose exponential is not a constant."""
+    valid = ops.valid > 0
+    same = (ops.labels[:, None] == ops.labels[None, :]) & valid[None, :]
+    n_pos = int(same.sum()) - int(valid.sum())
+    n_neg = int(((~same) & valid[None, :]).sum())
+    return n_pos, n_neg
+
+
+def lifted_bound(kname, ops, precision, sfu):
+    """(bound_ms, bound_by, counts): each input read once and each output
+    written once at the HBM rate, against the products at the operand
+    type's peak plus the f32 epilogue at the f32 peak plus the
+    exponentials and logs at the SFU rate."""
+    n, d = ops.opd.shape
+    esize = 2 if precision == "bf16" else 4
+    n_pos, n_neg = lifted_counts(ops)
+    side = 4 * 3 + 8          # sq, sq_pen, valid (f32), labels (int64)
+    if kname == "lifted_fwd":
+        nbytes = n * d * esize + n * side + 3 * n * 4
+        products = 2.0 * n * n * d
+        pairs = n * n
+        exps = n_pos + n_neg + 2 * n          # + the two logs per row
+    elif kname == "lifted_fwd_tri":
+        nbytes = n * d * esize + n * (side - 4) + 3 * n * 4
+        products = 1.0 * n * n * d            # the upper triangle
+        pairs = n * (n + 1) / 2
+        exps = (n_pos + n_neg) / 2 + 2 * n    # each pair once, + the logs
+    else:  # lifted_bwd
+        # + fp, cn, g_fp, g_cn in; the [N, d] f32 gradient out
+        nbytes = n * d * esize + n * (side + 4 * 4) + n * d * 4
+        products = 4.0 * n * n * d            # the tile, then C @ E
+        pairs = n * n
+        exps = 2 * (n_pos + n_neg)            # C_ij and C_ji
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (products / PEAK_OPS_PER_S[precision]
+             + LIFTED_EPILOGUE_OPS[kname] * pairs / PEAK_OPS_PER_S["f32"]
+             + exps / sfu)
+    counts = {"bytes": nbytes, "products_flop": products,
+              "epilogue_ops": LIFTED_EPILOGUE_OPS[kname] * pairs,
+              "exp_log": exps}
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", counts)
+
+
+def lifted_calls(ops):
+    """Each lifted kernel and its plain version as zero-argument calls on
+    the same operands, the backward's fp, cn and cotangents fixed."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
+        lifted_bwd_kernel, lifted_bwd_plain, lifted_fwd_kernel,
+        lifted_fwd_plain)
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
+        lifted_fwd_tri_kernel, lifted_fwd_tri_plain)
+    n = ops.sq.shape[0]
+    fp, cn, _ = lifted_fwd_plain(ops, MARGIN)
+    gen = torch.Generator(device=ops.sq.device).manual_seed(n)
+    g_fp = torch.rand(n, generator=gen, device=ops.sq.device) / n
+    g_cn = torch.rand(n, generator=gen, device=ops.sq.device) / n
+    return {
+        "lifted_fwd": (lambda: lifted_fwd_kernel(ops, MARGIN),
+                       lambda: lifted_fwd_plain(ops, MARGIN)),
+        "lifted_fwd_tri": (lambda: lifted_fwd_tri_kernel(ops, MARGIN),
+                           lambda: lifted_fwd_tri_plain(ops, MARGIN)),
+        "lifted_bwd": (lambda: lifted_bwd_kernel(ops, fp, cn, g_fp, g_cn,
+                                                 MARGIN),
+                       lambda: lifted_bwd_plain(ops, fp, cn, g_fp, g_cn,
+                                                MARGIN)),
+    }
+
+
+def check_lifted(name, emb, labels, valid, precision, bounded=True):
+    """K4, K5 (after K4 and, when ``bounded``, after K6) and K6 (when
+    ``bounded``: l2-normalised inputs) against their plain versions on the
+    same card inputs.  Returns (operands, {kernel: max_abs_err})."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        prep_operands)
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
+        lifted_bwd_kernel, lifted_bwd_plain, lifted_fwd_kernel,
+        lifted_fwd_plain)
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
+        lifted_fwd_tri_kernel, lifted_fwd_tri_plain)
+    ops = prep_operands(emb, labels, valid, precision)
+    n, d = ops.opd.shape
+    # f32 summation-order error of logsumexps of distances over N columns
+    # (kernel and plain sum the same rounded bf16 operands alike); the
+    # gradient's tolerance scales with its largest entry
+    tol = 1e-4 * max(1.0, d / 128)
+    errs = {}
+    forwards = [("lifted_fwd", lifted_fwd_kernel, lifted_fwd_plain)]
+    if bounded:
+        forwards.append(("lifted_fwd_tri", lifted_fwd_tri_kernel,
+                         lifted_fwd_tri_plain))
+    gen = torch.Generator(device=emb.device).manual_seed(n + d)
+    g_fp = torch.rand(n, generator=gen, device=emb.device) - 0.3
+    g_cn = torch.rand(n, generator=gen, device=emb.device) - 0.3
+    bwd_err = 0.0
+    for kname, kernel, plain in forwards:
+        fp_k, cn_k, nc_k = kernel(ops, MARGIN)
+        fp_p, cn_p, nc_p = plain(ops, MARGIN)
+        torch.cuda.synchronize()
+        for t, what in ((fp_k, "fp"), (cn_k, "cn"), (nc_k, "nc")):
+            if not bool(torch.isfinite(t).all()):
+                fail(f"{name}: {kname} {what} not finite")
+        if not torch.equal(nc_k, nc_p):
+            fail(f"{name}: {kname} negative counts differ")
+        # the row kernel's no-negative sentinel: cn = -1e30 exactly
+        sentinel = cn_p <= -0.5e30
+        if not torch.equal(sentinel, cn_k <= -0.5e30):
+            fail(f"{name}: {kname} no-negative rows differ")
+        if sentinel.any() and not bool((cn_k[sentinel] == -1e30).all()):
+            fail(f"{name}: {kname} sentinel cn is not -1e30")
+        err = max(float((fp_k - fp_p).abs().max()),
+                  float((cn_k - cn_p)[~sentinel].abs().max())
+                  if (~sentinel).any() else 0.0)
+        if not err <= tol:
+            fail(f"{name}: {kname} max_abs_err {err} > {tol}")
+        errs[kname] = err
+        # K5 after this forward, on its own fp and cn
+        g_k = lifted_bwd_kernel(ops, fp_k, cn_k, g_fp, g_cn, MARGIN)
+        g_p = lifted_bwd_plain(ops, fp_k, cn_k, g_fp, g_cn, MARGIN)
+        torch.cuda.synchronize()
+        gmax = float(g_p.abs().max())
+        gerr = float((g_k - g_p).abs().max())
+        gtol = tol * max(gmax, 1.0)
+        if not (bool(torch.isfinite(g_k).all()) and gerr <= gtol):
+            fail(f"{name}: lifted_bwd after {kname} max_abs_err {gerr} > "
+                 f"{gtol}")
+        bwd_err = max(bwd_err, gerr)
+        print(f"[lifted] {name}: N={n} d={d} {precision} {kname} "
+              f"max_abs_err={err:.3g} (tol {tol:.3g}), nc exact, "
+              f"{int(sentinel.sum())} sentinel rows; lifted_bwd after it "
+              f"max_abs_err={gerr:.3g} (tol {gtol:.3g}, max |grad| "
+              f"{gmax:.3g})", flush=True)
+    errs["lifted_bwd"] = bwd_err
+    return ops, errs
+
+
+def time_lifted(name, ops, precision, sfu):
+    """Kernel, plain (in turns: plain, kernel, kernel, plain), library and
+    bound times of K4, K5 and K6 on these operands."""
+    import torch
+    n, d = ops.opd.shape
+    opd = ops.opd
+    coef = torch.rand(n, n, device=opd.device).to(opd.dtype)
+    lib = {"fwd": device_ms(lambda: torch.matmul(opd, opd.T)),
+           "bwd": device_ms(lambda: (torch.matmul(opd, opd.T),
+                                     torch.matmul(coef, opd),
+                                     torch.matmul(coef.T, opd)))}
+    del coef
+    rows = {}
+    for kname, (kernel, plain) in lifted_calls(ops).items():
+        p_a = device_ms(plain)
+        k_a = device_ms(kernel)
+        k_b = device_ms(kernel)
+        p_b = device_ms(plain)
+        b_ms, b_by, counts = lifted_bound(kname, ops, precision, sfu)
+        rows[kname] = {
+            "ms": min(k_a, k_b), "plain_ms": min(p_a, p_b), "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib["bwd" if kname == "lifted_bwd" else "fwd"],
+            "call_ms": call_ms(kernel)}
+        print(f"[timing] {name} {kname}: N={n} d={d} {precision} "
+              + json.dumps(rows[kname]) + " counts " + json.dumps(counts),
+              flush=True)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_lifted_gradient(gen, bounded):
+    """The gradient of ``lifted_loss_fused`` (K6 or K4, then K5) against
+    dense autograd of the port's dense ``lifted_loss``."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.distances import (
+        pairwise_distance)
+    from multimodal_similarity_tpu_torch.ops.kernels import lifted_loss_fused
+    from multimodal_similarity_tpu_torch.ops.losses import lifted_loss
+    emb, labels, _ = make_case(512, 128, "float", gen)
+    e1 = emb.clone().requires_grad_(True)
+    loss_k = lifted_loss_fused(e1, labels, MARGIN, True, precision="f32",
+                               bounded=bounded)[0]
+    loss_k.backward()
+    e2 = emb.clone().requires_grad_(True)
+    loss_d = lifted_loss(pairwise_distance(e2, e2), labels, MARGIN, True)[0]
+    loss_d.backward()
+    torch.cuda.synchronize()
+    gmax = float(e2.grad.abs().max())
+    err = float((e1.grad - e2.grad).abs().max())
+    # f32 sum-order differences: the JAX package's kernel-test tolerance
+    tol = 1e-3 * gmax + 1e-7
+    lerr = abs(loss_k.item() - loss_d.item())
+    print(f"[lifted] gradient through lifted_loss_fused (bounded="
+          f"{bounded}: {'K6' if bounded else 'K4'} + K5) vs dense autograd: "
+          f"loss {loss_k.item():.6f} vs {loss_d.item():.6f}, max_abs_err "
+          f"{err:.3g} (tol {tol:.3g})", flush=True)
+    if not (lerr <= 1e-4 * max(1.0, abs(loss_d.item())) and err <= tol):
+        fail(f"lifted gradient (bounded={bounded}) disagrees with dense "
+             "autograd")
+
+
+def k6_combine_cost(ops, calls=20):
+    """Device time of K6's two launches apart (the tile walk and the
+    ascending-order reduce of its partials), from a torch.profiler trace
+    of ``calls`` calls; "not measured" when the trace has no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
+        lifted_fwd_tri_kernel)
+    for _ in range(3):
+        lifted_fwd_tri_kernel(ops, MARGIN)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            lifted_fwd_tri_kernel(ops, MARGIN)
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.key_averages():
+        for key in ("lifted_tri_kernel", "lifted_tri_reduce"):
+            if key in evt.key:
+                us = max(getattr(evt, attr, 0) or 0 for attr in (
+                    "self_device_time_total", "self_cuda_time_total",
+                    "device_time_total", "cuda_time_total"))
+                per[key] = per.get(key, 0.0) + us / calls / 1e3
+    n = ops.opd.shape[0]
+    if len(per) == 2 and all(v > 0 for v in per.values()):
+        print(f"[lifted] K6 at N={n}: tile walk {per['lifted_tri_kernel']:.5f}"
+              f" ms, combine {per['lifted_tri_reduce']:.5f} ms per call "
+              "(torch.profiler device time)", flush=True)
+    else:
+        print(f"[lifted] K6 at N={n}: combine cost not measured (the "
+              f"profiler trace held {per})", flush=True)
+
+
+def no_negative_case(n, d, gen):
+    """Two classes, the second all invalid: every first-class row has no
+    valid negative.  Labels offset by 2^40."""
+    import torch
+    emb = torch.randn(n, d, generator=gen)
+    emb = emb / emb.norm(dim=1, keepdim=True)
+    labels = (torch.arange(n) >= n // 3).long() + 2 ** 40
+    valid = (labels == 2 ** 40).float()
+    return emb.cuda(), labels.cuda(), valid.cuda()
+
+
+def lifted_kernel_phase(sfu):
+    """K4, K5 and K6 against their plain versions.  Returns the timing
+    rows and errors at the trainer's shape (N=512, d=128, f32) and the
+    timing rows at N=8192."""
+    import torch
+    gen = torch.Generator().manual_seed(1)
+    for precision in ("f32", "bf16"):
+        ops, errs = check_lifted(f"slice-{precision}",
+                                 *make_case(512, 128, "float", gen),
+                                 precision)
+        if precision == "f32":  # the trainer's shape and precision
+            main_rows = time_lifted("slice-f32", ops, "f32", sfu)
+            main_errs = errs
+            k6_combine_cost(ops)
+    emb, labels, valid = make_case(512, 128, "float", gen)
+    check_lifted("unnormalised-x3", emb * 3.0, labels, valid, "f32",
+                 bounded=False)
+    check_lifted("ragged-valid-int64", *make_case(
+        1000, 72, "float", gen, invalid_frac=0.1, label_offset=2 ** 40),
+        "f32")
+    check_lifted("ragged-valid-int64-bf16", *make_case(
+        777, 100, "float", gen, invalid_frac=0.2, label_offset=2 ** 33),
+        "bf16")
+    check_lifted("no-valid-negative", *no_negative_case(300, 100, gen),
+                 "f32")
+    ops, _ = check_lifted("large-d128", *make_case(
+        8192, 128, "float", gen, n_classes=64), "f32")
+    large_rows = time_lifted("large-d128", ops, "f32", sfu)
+    k6_combine_cost(ops)
+    for bounded in (True, False):
+        check_lifted_gradient(gen, bounded)
+    return main_rows, main_errs, large_rows
+
+
 def write_synthetic(root):
     from multimodal_similarity_tpu_torch.data import generate_synthetic_honda
     t0 = time.time()
@@ -277,31 +609,42 @@ def write_synthetic(root):
           f"8x8x1536) written in {time.time() - t0:.1f} s", flush=True)
 
 
-def trainer_phase(root):
+def full_width_cfg(root, name, **kw):
+    """The configuration of scripts/train_base_model.sh:5-11: ConvRTSN on
+    8x8x1536 resnet maps, 3 TSN segments, n_C=20, emb_dim=128, balanced
+    batch 512, event budget 1000, 3 sessions per batch, Adam, lr 1e-2,
+    keep_prob 0.5, alpha 0.2; 2 epochs unless ``kw`` says otherwise."""
+    from multimodal_similarity_tpu_torch.configs import TrainConfig
+    args = dict(
+        DATA_ROOT=root, name=name, feat="resnet", network="convrtsn",
+        n_input=1536, n_h=8, n_w=8, n_C=20, emb_dim=128, num_seg=3,
+        batch_size=512, event_per_batch=1000, sess_per_batch=3,
+        label_num=93, max_epochs=2, static_epochs=1000, learning_rate=1e-2,
+        keep_prob=0.5, optimizer="ADAM", alpha=0.2, lambda_l2=0.0,
+        log_flush_every=1)
+    args.update(kw)
+    return TrainConfig(**args).resolve()
+
+
+def drive_trainer(root, tag, train_fn, cfg):
+    """One trainer run, every launch count set to 0 just before it and read
+    just after; finite losses, and the device retrieval metrics of the
+    trained model against the NumPy oracle.  Returns (result, launches,
+    validations, experiment, validation embeddings, labels)."""
     import numpy as np
     import torch
-    from multimodal_similarity_tpu_torch.configs import TrainConfig
     from multimodal_similarity_tpu_torch.eval.metrics import (
         evaluate_simple, retrieval_metrics)
     from multimodal_similarity_tpu_torch.ops.kernels import (
         LAUNCHES, reset_launch_counts)
     from multimodal_similarity_tpu_torch.train.steps import (
         embed_in_chunks, make_embed_fn)
-    from multimodal_similarity_tpu_torch.train.trainers import (
-        base_model_batchhard)
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
 
-    write_synthetic(root)
-    cfg = TrainConfig(
-        DATA_ROOT=root, name="smoke_convrtsn", feat="resnet",
-        network="convrtsn", n_input=1536, n_h=8, n_w=8, n_C=20,
-        emb_dim=128, num_seg=3, batch_size=512, event_per_batch=1000,
-        sess_per_batch=3, label_num=93, max_epochs=2, static_epochs=1000,
-        learning_rate=1e-2, keep_prob=0.5, optimizer="ADAM", alpha=0.2,
-        lambda_l2=0.0, log_flush_every=1).resolve()
     reset_launch_counts()
     t0 = time.time()
-    res = base_model_batchhard.train(cfg, result_dir=os.path.join(
-        root, "result"))
+    res = train_fn(cfg, result_dir=os.path.join(root, f"result_{tag}"))
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(LAUNCHES)
@@ -313,61 +656,108 @@ def trainer_phase(root):
     # with a readback every step, consecutive records are a step apart
     gaps = [b["time"] - a["time"] for a, b in zip(steps, steps[1:])]
     for r, gap in zip(steps, [None] + gaps):
-        print(f"[trainer] step {r['step']} loss {r['loss']:.6f} active "
+        print(f"[{tag}] step {r['step']} loss {r['loss']:.6f} active "
               f"{r['active_count']:.3f} step_time_s "
               f"{'first' if gap is None else f'{gap:.4f}'}", flush=True)
     for r in vals:
-        print(f"[trainer] step {r['step']} val_mAP {r['val_mAP']:.6f} "
+        print(f"[{tag}] step {r['step']} val_mAP {r['val_mAP']:.6f} "
               f"val_loss {r['val_loss']:.6f}", flush=True)
-    print(f"[trainer] {res.step} steps, {len(vals)} validations in "
+    print(f"[{tag}] {res.step} steps, {len(vals)} validations in "
           f"{wall:.1f} s; launches {json.dumps(launches)}", flush=True)
-    if res.step < 2 or not steps:
-        fail(f"trainer took {res.step} steps")
+    if res.step < cfg.max_epochs or not steps:
+        fail(f"{tag}: trainer took {res.step} steps")
     if not all(math.isfinite(r["loss"]) for r in steps):
-        fail("non-finite training loss")
-    if launches["batch_hard_stats_idx"] != res.step:
-        fail(f"K1 launches {launches['batch_hard_stats_idx']} != "
-             f"optimizer steps {res.step}")
-    if launches["batch_hard_stats"] != len(vals) or not vals:
-        fail(f"K2 launches {launches['batch_hard_stats']} != "
-             f"validations {len(vals)}")
-    if not all(math.isfinite(r["val_mAP"]) for r in vals):
-        fail("non-finite val mAP")
+        fail(f"{tag}: non-finite training loss")
+    if len(vals) != cfg.max_epochs or \
+            not all(math.isfinite(r["val_mAP"]) and math.isfinite(
+                r["val_loss"]) for r in vals):
+        fail(f"{tag}: {len(vals)} validations, or a non-finite val mAP or "
+             "loss")
 
     # outputs: the device retrieval metrics against the NumPy oracle on the
     # trained model's validation embeddings
-    from multimodal_similarity_tpu_torch.train.trainers._honda import (
-        HondaExperiment)
-    exp = HondaExperiment(cfg, result_dir=os.path.join(root, "check"))
+    exp = HondaExperiment(cfg, result_dir=os.path.join(root, f"check_{tag}"))
     exp.close()
     emb = embed_in_chunks(make_embed_fn(res.model, cfg.normalized),
                           exp.val_feats, torch.device("cuda"))
     if tuple(emb.shape) != (exp.val_feats.shape[0], cfg.emb_dim) or \
             not bool(torch.isfinite(emb).all()):
-        fail(f"validation embeddings {tuple(emb.shape)} not finite or of "
-             "the wrong shape")
+        fail(f"{tag}: validation embeddings {tuple(emb.shape)} not finite "
+             "or of the wrong shape")
     labels = exp.val_labels.reshape(-1)
-    # K1/K2 at the validation shape the main path gave K2, on its inputs
-    check_inputs("validation-shape", emb, torch.from_numpy(
-        labels.astype(np.int64)).cuda(), torch.ones(emb.shape[0]).cuda(),
-        "bf16")
     dev = retrieval_metrics(emb, labels)
     ref = evaluate_simple(emb.cpu().numpy(), labels)
-    print(f"[trainer] val metrics device (mAP, mPrec, R@1) "
+    print(f"[{tag}] val metrics device (mAP, mPrec, R@1) "
           f"{dev[0]:.6f} {dev[1]:.6f} {dev[2][1]:.6f} vs NumPy oracle "
           f"{ref[0]:.6f} {ref[1]:.6f} {ref[2]:.6f}", flush=True)
     if not np.allclose([dev[0], dev[1], dev[2][1]], list(ref), atol=2e-3):
-        fail("device retrieval metrics disagree with the NumPy oracle")
+        fail(f"{tag}: device retrieval metrics disagree with the NumPy "
+             "oracle")
     if abs(dev[0] - vals[-1]["val_mAP"]) > 1e-6:
-        fail("val mAP of the trained model differs from the trainer's")
-    step_breakdown(exp, res, cfg)
-    return launches
+        fail(f"{tag}: val mAP of the trained model differs from the "
+             "trainer's")
+    return res, launches, len(vals), exp, emb, torch.from_numpy(
+        labels.astype(np.int64)).cuda()
 
 
-def step_breakdown(exp, res, cfg):
+def expect_launches(tag, launches, want):
+    for name, count in want.items():
+        if launches[name] != count:
+            fail(f"{tag}: {name} launches {launches[name]} != {count}")
+    print(f"[{tag}] launch counts as expected: {json.dumps(want)}",
+          flush=True)
+
+
+def trainer_phase(root):
+    """The batch-hard trainer, then the lifted trainer normalised and not;
+    returns each kernel's launches from the run whose path takes it."""
+    import torch
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_model_batchhard, base_model_lifted)
+
+    write_synthetic(root)
+    cfg = full_width_cfg(root, "smoke_convrtsn")
+    res, bh, n_val, exp, emb, labels = drive_trainer(
+        root, "trainer", base_model_batchhard.train, cfg)
+    expect_launches("trainer", bh, {
+        "batch_hard_stats_idx": res.step, "batch_hard_stats": n_val,
+        "lifted_fwd": 0, "lifted_bwd": 0, "lifted_fwd_tri": 0})
+    # K1/K2 at the validation shape the main path gave K2, on its inputs
+    check_inputs("validation-shape", emb, labels,
+                 torch.ones(emb.shape[0]).cuda(), "bf16")
+    step_breakdown("trainer", exp, res, cfg, "batchhard")
+
+    cfg = full_width_cfg(root, "smoke_lifted")
+    res, lt, n_val, exp, emb, labels = drive_trainer(
+        root, "lifted", base_model_lifted.train, cfg)
+    expect_launches("lifted", lt, {
+        "lifted_fwd_tri": res.step + n_val, "lifted_bwd": res.step,
+        "lifted_fwd": 0, "batch_hard_stats_idx": 0, "batch_hard_stats": 0})
+    # K4/K5/K6 at the validation shape the main path gave K6, on its inputs
+    check_lifted("validation-shape", emb, labels,
+                 torch.ones(emb.shape[0]).cuda(), "f32")
+    step_breakdown("lifted", exp, res, cfg, "lifted")
+
+    cfg = full_width_cfg(root, "smoke_lifted_raw", normalized=False,
+                         max_epochs=1)
+    res, raw, n_val, _, emb, labels = drive_trainer(
+        root, "lifted-no-normalized", base_model_lifted.train, cfg)
+    expect_launches("lifted-no-normalized", raw, {
+        "lifted_fwd": res.step + n_val, "lifted_bwd": res.step,
+        "lifted_fwd_tri": 0})
+    check_lifted("validation-shape-unnormalised", emb, labels,
+                 torch.ones(emb.shape[0]).cuda(), "f32", bounded=False)
+    return {"batch_hard_stats_idx": bh["batch_hard_stats_idx"],
+            "batch_hard_stats": bh["batch_hard_stats"],
+            "lifted_fwd_tri": lt["lifted_fwd_tri"],
+            "lifted_bwd": lt["lifted_bwd"],
+            "lifted_fwd": raw["lifted_fwd"]}
+
+
+def step_breakdown(tag, exp, res, cfg, loss_kind):
     """Where one full-width step's time goes, each part timed alone on the
     host clock: loading a session batch, the balanced selection and gather,
-    the upload, and the device step (forward, stats kernel, backward,
+    the upload, and the device step (forward, loss kernels, backward,
     Adam), each ending in a synchronise."""
     import random
 
@@ -392,7 +782,7 @@ def step_breakdown(exp, res, cfg):
     lab = torch.from_numpy(labels).cuda()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    step = make_balanced_batch_step(res.model, res.optimizer, cfg, "soft")
+    step = make_balanced_batch_step(res.model, res.optimizer, cfg, loss_kind)
     step(ev, lab, cfg.learning_rate)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
@@ -403,7 +793,7 @@ def step_breakdown(exp, res, cfg):
     parts = {"load_batch_s": t1 - t0, "select_gather_s": t2 - t1,
              "upload_s": t3 - t2, "device_step_s": (t5 - t4) / 3,
              "upload_bytes": int(events.nbytes)}
-    print(f"[trainer] step breakdown {json.dumps(parts)}", flush=True)
+    print(f"[{tag}] step breakdown {json.dumps(parts)}", flush=True)
 
 
 def main():
@@ -437,6 +827,13 @@ def main():
 
     # K2 is held bit-equal to K1, so both carry K1's error
     main_rows, main_err = kernel_phase()
+    sfu, sms, mhz = sfu_rate()
+    print(f"[lifted] SFU rate {sfu:.4g} exp/s ({SFU_PER_SM_CLOCK} per SM "
+          f"per clock x {sms} SMs x {mhz:.0f} MHz max SM clock)", flush=True)
+    lifted_rows, lifted_errs, _ = lifted_kernel_phase(sfu)
+    main_rows.update(lifted_rows)
+    errs = {"batch_hard_stats_idx": main_err, "batch_hard_stats": main_err,
+            **lifted_errs}
 
     scratch = os.path.join(HERE, "_build")
     os.makedirs(scratch, exist_ok=True)
@@ -444,11 +841,11 @@ def main():
         launches = trainer_phase(root)
 
     kernels = []
-    for name in ("batch_hard_stats_idx", "batch_hard_stats"):
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name],
+    for name in REPLACES:
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": launches[name],
-                        "max_abs_err": main_err, **main_rows[name]})
+                        "max_abs_err": errs[name], **main_rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,16 +16,22 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("batch_hard",)
+SOURCES = ("batch_hard", "lifted")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[str, Callable] = {}
+
+# kernel launches by kernel name, shared by every wrapper: each adds one
+# where it launches its kernel; callers reset and read it to show that a
+# path went through the kernels
+LAUNCHES: Dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -85,3 +91,15 @@ def load_library(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def bind(source: str, name: str, argtypes) -> Callable:
+    """The C function ``name`` of ``csrc/<source>.cu`` with its ctypes
+    signature set (int return), built and loaded at first use."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        fn = getattr(load_library(source), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _BOUND[name] = fn
+    return fn

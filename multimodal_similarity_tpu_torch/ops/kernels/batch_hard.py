@@ -46,27 +46,13 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from multimodal_similarity_tpu_torch.ops.kernels._build import LAUNCHES, bind
+
 POS_INF = 1e30
 
-# kernel launches by kernel name; reset and read by callers that must show a
-# path went through the kernels
-LAUNCHES = {"batch_hard_stats_idx": 0, "batch_hard_stats": 0}
-
-_FN = None
-
-
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from multimodal_similarity_tpu_torch.ops.kernels._build import (
-            load_library)
-        fn = load_library("batch_hard").batch_hard_stats
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+LAUNCHES.update(batch_hard_stats_idx=0, batch_hard_stats=0)
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+             + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p])
 
 
 class Operands(NamedTuple):
@@ -131,12 +117,13 @@ def stats_plain(ops: Operands, with_idx: bool):
             cni.values.to(torch.int32))
 
 
-def stats_kernel(ops: Operands, with_idx: bool):
-    """Launch K1 (``with_idx``) or K2 on the operands' CUDA device, on the
-    current stream.  Same returns as :func:`stats_plain`."""
+def check_operands(ops: Operands, who: str):
+    """Raise unless ``ops`` is what the CUDA kernels take: contiguous CUDA
+    tensors on one device, an [N, d] f32 or bf16 operand and [N] side
+    vectors.  Returns (N, d)."""
     opd = ops.opd
     if not opd.is_cuda:
-        raise ValueError("stats_kernel needs CUDA tensors")
+        raise ValueError(f"{who} needs CUDA tensors")
     if opd.dim() != 2 or opd.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"operand must be [N, d] f32 or bf16, got "
                          f"{tuple(opd.shape)} {opd.dtype}")
@@ -153,7 +140,25 @@ def stats_kernel(ops: Operands, with_idx: bool):
         raise ValueError("operand must be contiguous")
     if n >= 2 ** 31 or d >= 2 ** 31:
         raise ValueError(f"shape {tuple(opd.shape)} exceeds int32")
-    fn = _kernel_fn()
+    return n, d
+
+
+def on_cpu(ops: Operands, what: str) -> bool:
+    """True for CPU operands (the plain version), False for CUDA ones (the
+    kernel); raises for any other device: no fallback."""
+    if ops.opd.is_cuda:
+        return False
+    if ops.opd.device.type != "cpu":
+        raise ValueError(f"no {what} kernel for device {ops.opd.device}")
+    return True
+
+
+def stats_kernel(ops: Operands, with_idx: bool):
+    """Launch K1 (``with_idx``) or K2 on the operands' CUDA device, on the
+    current stream.  Same returns as :func:`stats_plain`."""
+    opd = ops.opd
+    n, d = check_operands(ops, "stats_kernel")
+    fn = bind("batch_hard", "batch_hard_stats", _ARGTYPES)
     fp, cn, nc = (torch.empty(n, dtype=torch.float32, device=opd.device)
                   for _ in range(3))
     if with_idx:
@@ -176,11 +181,9 @@ def stats_kernel(ops: Operands, with_idx: bool):
 
 def batch_hard_stats(ops: Operands, with_idx: bool):
     """The kernel for CUDA operands, the plain version for CPU ones."""
-    if ops.opd.is_cuda:
-        return stats_kernel(ops, with_idx)
-    if ops.opd.device.type != "cpu":
-        raise ValueError(f"no batch-hard kernel for device {ops.opd.device}")
-    return stats_plain(ops, with_idx)
+    if on_cpu(ops, "batch-hard"):
+        return stats_plain(ops, with_idx)
+    return stats_kernel(ops, with_idx)
 
 
 def winning_pair_grad(emb, fp, cn, fpi, cni, g_fp, g_cn):

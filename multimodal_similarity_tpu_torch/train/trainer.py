@@ -5,14 +5,13 @@ from __future__ import annotations
 
 import os
 from datetime import datetime
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from multimodal_similarity_tpu_torch.configs import write_configure_to_file
 from multimodal_similarity_tpu_torch.eval.metrics import retrieval_metrics
-from multimodal_similarity_tpu_torch.ops.kernels import batch_hard_fused
 from multimodal_similarity_tpu_torch.train.steps import embed_in_chunks
 
 
@@ -31,18 +30,18 @@ def setup_experiment(cfg, timestamp: bool = True,
 
 
 def validate(embed_fn, val_feats, val_labels, device: torch.device,
-             margin="soft", precision: str = "bf16", chunk: int = 256):
+             loss_fn: Callable, chunk: int = 256):
     """Per-epoch validation: chunked eval-mode embedding on ``device``,
-    leave-one-out retrieval metrics, and the batch-hard loss of the whole
-    validation set (no gradient, so it runs the stats kernel without winner
-    tracking).  Returns (metrics, embeddings tensor)."""
+    leave-one-out retrieval metrics, and the trainer's own objective
+    ``loss_fn(emb, labels)`` over the whole validation set (no gradient, so
+    the batch-hard stats run without winner tracking and the lifted stats
+    run their forward alone).  Returns (metrics, embeddings tensor)."""
     emb = embed_in_chunks(embed_fn, val_feats, device, chunk=chunk)
     labels = np.asarray(val_labels).reshape(-1)
     mAP, mPrec, recalls = retrieval_metrics(emb, labels)
     with torch.no_grad():
-        val_loss = batch_hard_fused(
-            emb, torch.from_numpy(labels.astype(np.int64)).to(device),
-            margin, weighted=True, precision=precision)[0]
+        val_loss = loss_fn(
+            emb, torch.from_numpy(labels.astype(np.int64)).to(device))[0]
     return {"val_mAP": mAP, "val_mPrec": mPrec,
             "val_recall@1": recalls[1], "val_loss": float(val_loss)}, emb
 

@@ -1,21 +1,24 @@
 """Batch-hard trainer on class-balanced batches.
 
 Round-robin class-balanced batches from the session loader, the encoder,
-l2-normalisation, and the batch-hard objective of "In Defense of the
-Triplet Loss" through the fused CUDA stats kernel
-(ops/kernels/batch_hard.py), Adam (eps=0.1), per-epoch leave-one-out
-validation and a checkpoint.  Streamed, single device: more than one
-visible GPU is not sharded.
+l2-normalisation, and a batch-structured objective through fused CUDA
+kernels: batch-hard ("In Defense of the Triplet Loss",
+ops/kernels/batch_hard.py) or, with ``loss_kind="lifted"``, the
+lifted-structured loss (ops/kernels/lifted.py; base_model_lifted.py).  Adam
+(eps=0.1), per-epoch leave-one-out validation and a checkpoint.  Streamed,
+single device: more than one visible GPU is not sharded.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard --DATA_ROOT <dir> ...
+(``--device cpu`` runs on the CPU; the default is ``cuda``.)
 """
 
 from __future__ import annotations
 
+import argparse
 import itertools
 import random
 import sys
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,7 +26,8 @@ import torch
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.models import build_encoder
-from multimodal_similarity_tpu_torch.ops.kernels import batch_hard_fused
+from multimodal_similarity_tpu_torch.ops.kernels import (
+    batch_hard_fused, lifted_loss_fused)
 from multimodal_similarity_tpu_torch.ops.mining import select_batch_balanced
 from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
 from multimodal_similarity_tpu_torch.train.state import (
@@ -45,12 +49,9 @@ class TrainResult(NamedTuple):
     result_dir: str
 
 
-def _check_supported(cfg: TrainConfig, loss_kind: str) -> None:
+def _check_supported(cfg: TrainConfig) -> None:
     """Raise for every option whose feature is not ported yet, naming the
     ROADMAP slice that ports it."""
-    if loss_kind != "batchhard":
-        raise NotImplementedError(
-            f"loss_kind={loss_kind!r} is not ported yet (ROADMAP slice 2)")
     unported = (
         (cfg.device_cache, "--device_cache", 8),
         (cfg.steps_per_dispatch > 1, "--steps_per_dispatch", 8),
@@ -67,11 +68,35 @@ def _check_supported(cfg: TrainConfig, loss_kind: str) -> None:
                 f"{flag} is not ported yet (ROADMAP slice {slice_no})")
 
 
-def make_balanced_batch_step(model, optimizer, cfg: TrainConfig, margin,
-                             precision: str = "bf16"):
+def make_loss(cfg: TrainConfig, loss_kind: str,
+              precision: Optional[str] = None) -> Callable:
+    """loss(emb, labels) -> the loss tuple of the trainer's objective.
+
+    Batch-hard: the soft margin unless ``--no_soft`` (then ``alpha``), bf16
+    stats.  Lifted: margin ``alpha``, f32 stats (the JAX default for
+    lifted), and the triangular bounded forward when the embeddings are
+    l2-normalised.  ``precision`` overrides the kind's default."""
+    if loss_kind == "batchhard":
+        margin = cfg.alpha if cfg.no_soft else "soft"
+        prec = precision or "bf16"
+        return lambda emb, labels: batch_hard_fused(
+            emb, labels, margin, weighted=True, precision=prec)
+    if loss_kind == "lifted":
+        prec = precision or "f32"
+        return lambda emb, labels: lifted_loss_fused(
+            emb, labels, cfg.alpha, weighted=True, precision=prec,
+            bounded=cfg.normalized)
+    raise ValueError(f"unknown loss_kind {loss_kind!r}; expected "
+                     "'batchhard' or 'lifted'")
+
+
+def make_balanced_batch_step(model, optimizer, cfg: TrainConfig,
+                             loss_kind: str = "batchhard",
+                             precision: Optional[str] = None):
     """step(events [B, ...], labels [B], learning_rate) -> device scalars,
-    one optimizer step of the batch-hard loss over a class-balanced
+    one optimizer step of the ``loss_kind`` objective over a class-balanced
     batch."""
+    loss_fn = make_loss(cfg, loss_kind, precision)
 
     def step(events: torch.Tensor, labels: torch.Tensor,
              learning_rate: float):
@@ -80,8 +105,7 @@ def make_balanced_batch_step(model, optimizer, cfg: TrainConfig, margin,
         emb = model(events)
         if cfg.normalized:
             emb = l2_normalize(emb)
-        loss, num_active, *_ = batch_hard_fused(
-            emb, labels, margin, weighted=True, precision=precision)
+        loss, num_active, *_ = loss_fn(emb, labels)
         total = loss
         if cfg.lambda_l2:
             total = total + cfg.lambda_l2 * l2_regularization(model)
@@ -98,7 +122,10 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
           result_dir: Optional[str] = None, device=None) -> TrainResult:
     """Train on ``device`` (default ``cuda``; raises when no card is
     visible and the CPU was not asked for)."""
-    _check_supported(cfg, loss_kind)
+    # the validation loss is the trainer's own objective; an unknown loss
+    # kind raises here, before any data is read
+    val_loss_fn = make_loss(cfg, loss_kind)
+    _check_supported(cfg)
     device = resolve_device(device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
                           result_dir=result_dir)
@@ -116,8 +143,7 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
 
     embed_fn = make_embed_fn(model, cfg.normalized)
     batch_size = cfg.batch_size if cfg.batch_size > 8 else 64
-    margin = cfg.alpha if cfg.no_soft else "soft"
-    step_fn = make_balanced_batch_step(model, optimizer, cfg, margin)
+    step_fn = make_balanced_batch_step(model, optimizer, cfg, loss_kind)
     # the validation features go to the device once, not every epoch
     val_x = torch.from_numpy(exp.val_feats).to(device)
     # a config-seeded rng for the balanced selection: the same draws as the
@@ -166,7 +192,7 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
                       "stopping")
                 break
             metrics, _ = validate(embed_fn, val_x, exp.val_labels, device,
-                                  margin)
+                                  val_loss_fn)
             exp.log(step_host, metrics,
                     f"[{cfg.name}] epoch {epoch + 1} val mAP "
                     f"{metrics['val_mAP']:.4f}")
@@ -178,8 +204,13 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
     return TrainResult(model, optimizer, step_host, metrics, exp.result_dir)
 
 
-def main(argv=None):
-    train(TrainConfig.parse(argv))
+def main(argv=None, loss_kind: str = "batchhard"):
+    """The trainer CLI: the JAX trainer's flags, plus ``--device`` (default
+    ``cuda``)."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", default=None)
+    args, rest = p.parse_known_args(argv)
+    train(TrainConfig.parse(rest), loss_kind=loss_kind, device=args.device)
 
 
 if __name__ == "__main__":

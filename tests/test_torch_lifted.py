@@ -1,0 +1,271 @@
+"""The port's lifted-structured stats, loss and gradient
+(ops/kernels/lifted.py, lifted_tri.py) against the JAX package's Pallas
+kernels (interpret mode on the CPU) and the dense oracles, on the same numpy
+inputs.  On a CPU tensor the port runs its plain PyTorch versions; the CUDA
+kernels themselves are checked against those versions on the card by
+chip_smoke.py.
+
+Tolerances: f32 stats and losses 1e-4 (summation order of the distance
+products and of the exponential sums differs between XLA and PyTorch);
+gradients rtol 1e-3 / atol 1e-5 as the JAX package's own kernel tests; bf16
+5e-2 (operand rounding)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_similarity_tpu.ops.distances import self_distance
+from multimodal_similarity_tpu.ops.losses import lifted_loss as jax_lifted
+from multimodal_similarity_tpu.ops.pallas.lifted import (
+    fused_lifted_stats as jax_fused_lifted, lifted_loss_pallas)
+from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
+from multimodal_similarity_tpu_torch.ops.kernels import (
+    LAUNCHES, fused_lifted_stats, lifted_loss_fused, reset_launch_counts)
+from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+    Operands, prep_operands)
+from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
+    lifted_bwd, lifted_fwd)
+from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
+    lifted_fwd_tri, tri_block)
+from multimodal_similarity_tpu_torch.ops.losses import lifted_loss
+
+MARGIN = 0.5
+BOUNDED = [pytest.param(False, id="row"), pytest.param(True, id="tri")]
+
+
+def _clustered(rng, n=60, n_classes=5, dim=24, normed=False):
+    labels = rng.randint(0, n_classes, size=n)
+    centers = rng.randn(n_classes, dim)
+    emb = (centers[labels] + 0.8 * rng.randn(n, dim)).astype(np.float32)
+    if normed:
+        emb = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+    labels[:3] = 1
+    return emb, labels
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(got, want, tol=1e-4):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("bounded", BOUNDED)
+def test_lifted_stats_match_dense_and_jax(rng, bounded):
+    emb, labels = _clustered(rng, normed=bounded)
+    fp, cn, nc = fused_lifted_stats(_t(emb), _t(labels), None, MARGIN,
+                                    "f32", bounded)
+    jfp, jcn, jnc = jax_fused_lifted(jnp.asarray(emb), jnp.asarray(labels),
+                                     None, MARGIN, 16, "f32", bounded)
+    want = jax_lifted(self_distance(jnp.asarray(emb)),
+                      jnp.asarray(labels, jnp.float32), MARGIN)
+    dense = lifted_loss(pairwise_distance(_t(emb), _t(emb)), _t(labels),
+                        MARGIN)
+    for got, j, w, p in ((fp, jfp, want[4], dense[4]),
+                         (cn, jcn, want[5], dense[5])):
+        _close(got, j)
+        _close(got, w)
+        _close(p, w)
+    np.testing.assert_array_equal(nc.numpy(), np.asarray(jnc))
+
+
+@pytest.mark.parametrize("bounded", BOUNDED)
+def test_lifted_valid_mask_nonaligned(rng, bounded):
+    """N = 37 over blocks of 16, the last 7 rows invalid: the stats equal
+    the JAX kernel's row for row, and the loss equals the dense loss of the
+    30 valid rows alone."""
+    emb, labels = _clustered(rng, n=37, dim=8, normed=bounded)
+    valid = (np.arange(37) < 30).astype(np.float32)
+    got = lifted_loss_fused(_t(emb), _t(labels), MARGIN, True,
+                            valid=_t(valid), bounded=bounded)
+    jax_got = lifted_loss_pallas(jnp.asarray(emb), jnp.asarray(labels),
+                                 MARGIN, True, valid=jnp.asarray(valid),
+                                 block=16, bounded=bounded)
+    want = jax_lifted(self_distance(jnp.asarray(emb[:30])),
+                      jnp.asarray(labels[:30], jnp.float32), MARGIN)
+    np.testing.assert_allclose(got[0].item(), float(want[0]), rtol=1e-4)
+    np.testing.assert_allclose(got[0].item(), float(jax_got[0]), rtol=1e-4)
+    for i in (2, 3, 4, 5):
+        _close(got[i], jax_got[i])
+
+
+@pytest.mark.parametrize("bounded", BOUNDED)
+def test_row_with_no_valid_negative(rng, bounded):
+    """Class 1 is valid, class 2 all invalid: class-1 rows have no valid
+    negative.  The row forward keeps the -1e30 sentinel (max -1e30 plus
+    log of the column count), the triangular one floors its sum at 1e-30;
+    each equals its JAX counterpart."""
+    emb = rng.randn(20, 8).astype(np.float32)
+    if bounded:
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    labels = np.repeat([1, 2], 10)
+    valid = (labels == 1).astype(np.float32)
+    fp, cn, nc = fused_lifted_stats(_t(emb), _t(labels), _t(valid), MARGIN,
+                                    "f32", bounded)
+    jfp, jcn, jnc = jax_fused_lifted(jnp.asarray(emb), jnp.asarray(labels),
+                                     jnp.asarray(valid), MARGIN, 16, "f32",
+                                     bounded)
+    np.testing.assert_array_equal(nc.numpy(), np.asarray(jnc))
+    assert (nc[:10] == 0).all() and (nc[10:] == 10).all()
+    if bounded:
+        np.testing.assert_allclose(cn[:10].numpy(), np.log(np.float32(1e-30)),
+                                   rtol=1e-6)
+    else:
+        assert (cn[:10] == np.float32(-1e30)).all()
+    np.testing.assert_allclose(cn.numpy(), np.asarray(jcn), rtol=1e-5,
+                               atol=1e-4)
+    _close(fp, jfp)
+    # the gradient through such rows stays finite
+    e = _t(emb).clone().requires_grad_(True)
+    fp, cn, _ = fused_lifted_stats(e, _t(labels), _t(valid), MARGIN, "f32",
+                                   bounded)
+    (fp.sum() + cn[10:].sum()).backward()
+    assert torch.isfinite(e.grad).all()
+
+
+@pytest.mark.parametrize("bounded", BOUNDED)
+def test_large_label_ids(rng, bounded):
+    """Ids above 2^24 equal the JAX result on the same ids (which remaps
+    them), and ids of 2^40 give the same stats as small ones: labels are
+    compared as int64, never cast to float."""
+    emb, _ = _clustered(rng, n=48, dim=16, normed=bounded)
+    small = np.array([1, 2, 3] * 16, np.int64)
+    ref = fused_lifted_stats(_t(emb), _t(small), None, MARGIN, "f32",
+                             bounded)
+    mid = small + (1 << 26)
+    assert np.float32(mid[0]) == np.float32(mid[1])
+    jfp, jcn, jnc = jax_fused_lifted(jnp.asarray(emb), jnp.asarray(mid),
+                                     None, MARGIN, 16, "f32", bounded)
+    got = fused_lifted_stats(_t(emb), _t(mid), None, MARGIN, "f32", bounded)
+    _close(got[0], jfp)
+    _close(got[1], jcn)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(jnc))
+    huge = fused_lifted_stats(_t(emb), _t(small + (1 << 40)), None, MARGIN,
+                              "f32", bounded)
+    for a, b in zip(huge, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("bounded", BOUNDED)
+def test_loss_tuple_matches_jax(rng, weighted, bounded):
+    emb, labels = _clustered(rng, n=50, normed=bounded)
+    labels[10:14] = 0  # background anchors
+    got = lifted_loss_fused(_t(emb), _t(labels), MARGIN, weighted,
+                            bounded=bounded)
+    jax_got = lifted_loss_pallas(jnp.asarray(emb), jnp.asarray(labels),
+                                 MARGIN, weighted, block=16, bounded=bounded)
+    assert len(got) == 6 and got[1].item() == 1.0
+    np.testing.assert_allclose(got[0].item(), float(jax_got[0]), rtol=1e-4)
+    for a, b in zip(got[2:], jax_got[2:]):
+        _close(a, b)
+    dense = lifted_loss(pairwise_distance(_t(emb), _t(emb)), _t(labels),
+                        MARGIN, weighted)
+    np.testing.assert_allclose(dense[0].item(), got[0].item(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("bounded", BOUNDED)
+def test_gradients_match_jax(rng, bounded):
+    emb, labels = _clustered(rng, n=48, dim=16, normed=bounded)
+    e = _t(emb).clone().requires_grad_(True)
+    lifted_loss_fused(e, _t(labels), MARGIN, True, bounded=bounded)[0] \
+        .backward()
+
+    def fused(x):
+        return lifted_loss_pallas(x, jnp.asarray(labels), MARGIN, True,
+                                  block=16, bounded=bounded)[0]
+
+    def dense(x):
+        return jax_lifted(self_distance(x), jnp.asarray(labels, jnp.float32),
+                          MARGIN, True)[0]
+
+    for fn in (fused, dense):
+        g = np.asarray(jax.grad(fn)(jnp.asarray(emb)))
+        np.testing.assert_allclose(e.grad.numpy(), g, rtol=1e-3, atol=1e-5)
+    # and the port's own dense oracle under autograd
+    e2 = _t(emb).clone().requires_grad_(True)
+    lifted_loss(pairwise_distance(e2, e2), _t(labels), MARGIN)[0].backward()
+    np.testing.assert_allclose(e.grad.numpy(), e2.grad.numpy(), rtol=1e-3,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("bounded", BOUNDED)
+def test_vjp_with_arbitrary_cotangents(rng, bounded):
+    """The recompute backward (straight + transposed pass) against the JAX
+    VJP for cotangents that are not the loss weights, with a valid mask
+    and non-aligned N: invalid rows and padding contribute nothing."""
+    emb, labels = _clustered(rng, n=45, dim=12, normed=bounded)
+    valid = (rng.rand(45) > 0.2).astype(np.float32)
+    g_fp = rng.randn(45).astype(np.float32)
+    g_cn = rng.randn(45).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jax_fused_lifted(
+        x, jnp.asarray(labels), jnp.asarray(valid), MARGIN, 16, "f32",
+        bounded)[:2], jnp.asarray(emb))
+    want = np.asarray(vjp((jnp.asarray(g_fp), jnp.asarray(g_cn)))[0])
+    e = _t(emb).clone().requires_grad_(True)
+    fp, cn, _ = fused_lifted_stats(e, _t(labels), _t(valid), MARGIN, "f32",
+                                   bounded)
+    torch.autograd.backward((fp, cn), (_t(g_fp), _t(g_cn)))
+    np.testing.assert_allclose(e.grad.numpy(), want, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("bounded", BOUNDED)
+def test_bf16_close_to_f32(rng, bounded):
+    emb, labels = _clustered(rng, n=48, dim=16, normed=bounded)
+    out = {}
+    for precision in ("f32", "bf16"):
+        e = _t(emb).clone().requires_grad_(True)
+        res = lifted_loss_fused(e, _t(labels), MARGIN, True,
+                                precision=precision, bounded=bounded)
+        res[0].backward()
+        out[precision] = (res[0].item(), res[4], res[5], e.grad)
+    np.testing.assert_allclose(out["bf16"][0], out["f32"][0], rtol=5e-2)
+    for a, b in zip(out["bf16"][1:], out["f32"][1:]):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=5e-2, atol=5e-2)
+
+
+def test_cpu_path_counts_no_launch(rng):
+    emb, labels = _clustered(rng, n=30)
+    before = dict(LAUNCHES)
+    for bounded in (False, True):
+        e = _t(emb).clone().requires_grad_(True)
+        lifted_loss_fused(e, _t(labels), MARGIN, bounded=bounded)[0] \
+            .backward()
+    assert LAUNCHES == before
+
+
+def test_reset_launch_counts_covers_every_kernel():
+    """One registry holds every kernel module's counts, and one reset
+    clears them all."""
+    assert {"batch_hard_stats_idx", "batch_hard_stats", "lifted_fwd",
+            "lifted_bwd", "lifted_fwd_tri"} <= set(LAUNCHES)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 3
+    reset_launch_counts()
+    assert set(LAUNCHES.values()) == {0}
+
+
+def test_dispatch_by_device():
+    """CPU operands take the plain versions; a device with no kernel
+    raises rather than falling back."""
+    emb = torch.randn(8, 4)
+    ops = prep_operands(emb, torch.tensor([1, 1, 2, 2, 3, 3, 4, 4]),
+                        torch.ones(8), "f32")
+    assert len(lifted_fwd(ops, 0.2)) == 3 and len(lifted_fwd_tri(ops, 0.2))
+    meta = Operands(*(t.to("meta") for t in ops))
+    for call in (lambda: lifted_fwd(meta, 0.2),
+                 lambda: lifted_fwd_tri(meta, 0.2),
+                 lambda: lifted_bwd(meta, *(torch.zeros(8),) * 4, 0.2)):
+        with pytest.raises(ValueError, match="no .* kernel for device"):
+            call()
+
+
+@pytest.mark.parametrize("n,sms,want", [(512, 132, 32), (960, 132, 32),
+                                        (1024, 132, 64), (8192, 132, 64)])
+def test_triangular_tile_choice(n, sms, want):
+    assert tri_block(n, sms) == want

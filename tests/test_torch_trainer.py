@@ -5,6 +5,8 @@ each assertion and come from f32 summation order."""
 
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,8 @@ from multimodal_similarity_tpu.eval.metrics import (
     evaluate as jax_evaluate, evaluate_simple as jax_evaluate_simple,
     retrieval_metrics_device)
 from multimodal_similarity_tpu.models import build_encoder as jax_build
-from multimodal_similarity_tpu.ops.pallas import batch_hard_pallas
+from multimodal_similarity_tpu.ops.pallas import (
+    batch_hard_pallas, lifted_loss_pallas)
 from multimodal_similarity_tpu.train.checkpoints import save_pytree
 from multimodal_similarity_tpu.train.state import (
     TrainState, build_optimizer as jax_build_optimizer,
@@ -38,7 +41,7 @@ from multimodal_similarity_tpu_torch.train.state import (
     apply_gradients, build_optimizer, l2_regularization,
     learning_rate_schedule)
 from multimodal_similarity_tpu_torch.train.trainers import (
-    base_model_batchhard)
+    base_model_batchhard, base_model_lifted)
 
 SMALL = dict(num_seg=3, emb_dim=16, n_input=8, n_h=2, n_w=2, n_C=4)
 
@@ -75,7 +78,7 @@ def test_one_step_matches_jax(rng):
     load_flax_params(tm, jax.tree.map(np.asarray, params))
     opt = build_optimizer("ADAM", tm, 0.01)
     step = base_model_batchhard.make_balanced_batch_step(
-        tm, opt, cfg, "soft", precision="f32")
+        tm, opt, cfg, "batchhard", precision="f32")
     aux = step(torch.from_numpy(x), torch.from_numpy(labels), 0.01)
 
     np.testing.assert_allclose(aux["loss"].item(), float(total), rtol=1e-5)
@@ -204,12 +207,59 @@ def test_unported_flags_raise(tmp_path, flag, value, slice_no):
 
 
 def test_lifted_and_missing_gpu_raise(tmp_path, monkeypatch):
+    """An unknown loss kind raises (lifted is ported and runs), and so does
+    the default device when no card is visible."""
     cfg = _cfg(TrainConfig, DATA_ROOT=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        base_model_batchhard.train(cfg, loss_kind="lifted", device="cpu")
+    with pytest.raises(ValueError, match="unknown loss_kind"):
+        base_model_batchhard.train(cfg, loss_kind="npairs", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         base_model_batchhard.train(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        base_model_lifted.train(cfg)
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+def test_one_lifted_step_matches_jax(rng, normalized):
+    """One optimizer step of the lifted objective from mapped params (the
+    triangular forward when normalised, the row forward when not): the
+    same loss, gradients and updated params (loss rtol 1e-5; grads rtol
+    1e-4 / atol 1e-6; params atol 1e-6)."""
+    x = rng.randn(24, 3, 2, 2, 8).astype(np.float32)
+    labels = np.repeat(np.arange(1, 7), 4)
+    cfg = _cfg(TrainConfig, normalized=normalized)
+    jm = jax_build("convrtsn", **SMALL)
+    params = jm.init(jax.random.PRNGKey(4), jnp.asarray(x))["params"]
+    state = TrainState.create(params, jax_build_optimizer("ADAM", 0.01))
+
+    def loss_fn(p):
+        emb = jm.apply({"params": p}, jnp.asarray(x), train=True,
+                       rngs={"dropout": jax.random.PRNGKey(1)})
+        if normalized:
+            emb = jax_l2_normalize(emb)
+        return lifted_loss_pallas(emb, jnp.asarray(labels), cfg.alpha, True,
+                                  block=8, bounded=normalized)[0]
+
+    total, grads = jax.value_and_grad(loss_fn)(state.params)
+    new_state = state.apply_gradients(grads, learning_rate=jnp.float32(0.01))
+
+    tm = build_encoder("convrtsn", **SMALL)
+    load_flax_params(tm, jax.tree.map(np.asarray, params))
+    opt = build_optimizer("ADAM", tm, 0.01)
+    step = base_model_batchhard.make_balanced_batch_step(tm, opt, cfg,
+                                                         "lifted")
+    aux = step(torch.from_numpy(x), torch.from_numpy(labels), 0.01)
+
+    np.testing.assert_allclose(aux["loss"].item(), float(total), rtol=1e-5)
+    assert aux["active_count"].item() == 1.0
+    want_g = flax_to_state_dict(jax.tree.map(np.asarray, grads), tm)
+    want_p = flax_to_state_dict(jax.tree.map(np.asarray, new_state.params),
+                                tm)
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_g[name].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(p.detach().numpy(), want_p[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
 
 
 def _records(result_dir):
@@ -219,17 +269,15 @@ def _records(result_dir):
             [r["val_mAP"] for r in recs if "val_mAP" in r])
 
 
-def test_one_epoch_matches_jax_trainer(tmp_path, monkeypatch):
-    """Both trainers, one epoch on the same synthetic directory from the
-    same initial params with dropout off: the same balanced batches, a loss
-    trace within rtol 1e-4 and the same val mAP (atol 1e-3).  The JAX run
-    here spreads the batch over the suite's virtual CPU devices (f32 ring
-    pass), so the port runs its stats in f32 too."""
+def _one_epoch_pair(tmp_path, port_train, jax_train, **extra):
+    """One epoch of the port's trainer and the JAX trainer on the same
+    synthetic directory from the same initial params, dropout off.
+    Returns ((port losses, port val mAPs), (JAX ...), port steps)."""
     root = str(tmp_path / "data")
     generate_synthetic_honda(root, n_sessions=5, frames_per_session=300,
                              modal_dims={"resnet": (2, 2, 8)}, seed=0)
     kw = dict(DATA_ROOT=root, sess_per_batch=1, batch_size=32,
-              max_epochs=1, log_flush_every=1)
+              max_epochs=1, log_flush_every=1, **extra)
     jcfg, pcfg = _cfg(JaxTrainConfig, **kw), _cfg(TrainConfig, **kw)
 
     jm = jax_build("convrtsn", **SMALL)
@@ -244,19 +292,69 @@ def test_one_epoch_matches_jax_trainer(tmp_path, monkeypatch):
     save_checkpoint(pcfg.model_path, tm,
                     build_optimizer("ADAM", tm, pcfg.learning_rate), 0)
 
+    _, _, jax_dir = jax_train(jcfg, event_budget=48,
+                              result_dir=str(tmp_path / "jax"))
+    res = port_train(pcfg, event_budget=48,
+                     result_dir=str(tmp_path / "port"), device="cpu")
+    return _records(res.result_dir), _records(jax_dir), res.step
+
+
+def test_one_epoch_matches_jax_trainer(tmp_path, monkeypatch):
+    """Both trainers, one epoch on the same synthetic directory from the
+    same initial params with dropout off: the same balanced batches, a loss
+    trace within rtol 1e-4 and the same val mAP (atol 1e-3).  The JAX run
+    here spreads the batch over the suite's virtual CPU devices (f32 ring
+    pass), so the port runs its stats in f32 too."""
     from multimodal_similarity_tpu.train.trainers import (
         base_model_batchhard as jax_trainer)
-    _, _, jax_dir = jax_trainer.train(jcfg, event_budget=48,
-                                      result_dir=str(tmp_path / "jax"))
     real_step = base_model_batchhard.make_balanced_batch_step
     monkeypatch.setattr(
         base_model_batchhard, "make_balanced_batch_step",
         lambda *a, **k: real_step(*a, **dict(k, precision="f32")))
-    res = base_model_batchhard.train(pcfg, event_budget=48,
-                                     result_dir=str(tmp_path / "port"),
-                                     device="cpu")
-    got_loss, got_map = _records(res.result_dir)
-    want_loss, want_map = _records(jax_dir)
-    assert res.step == len(want_loss) == 3
+    (got_loss, got_map), (want_loss, want_map), steps = _one_epoch_pair(
+        tmp_path, base_model_batchhard.train, jax_trainer.train)
+    assert steps == len(want_loss) == 3
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
     np.testing.assert_allclose(got_map, want_map, atol=1e-3)
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+def test_one_lifted_epoch_matches_jax_trainer(tmp_path, normalized):
+    """The lifted trainers, one epoch, as above: the port's triangular
+    forward (normalised) or row forward (not) against the JAX trainer's
+    ring pass over the virtual CPU devices, both in f32.  Loss trace rtol
+    1e-4, val mAP atol 1e-3."""
+    from multimodal_similarity_tpu.train.trainers import (
+        base_model_lifted as jax_lifted_trainer)
+    (got_loss, got_map), (want_loss, want_map), steps = _one_epoch_pair(
+        tmp_path, base_model_lifted.train, jax_lifted_trainer.train,
+        normalized=normalized)
+    assert steps == len(want_loss) == 3
+    assert all(np.isfinite(got_loss))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
+    np.testing.assert_allclose(got_map, want_map, atol=1e-3)
+
+
+def test_lifted_cli_runs_on_cpu(tmp_path):
+    """``python -m ...base_model_lifted --device cpu`` trains an epoch on a
+    synthetic directory and logs finite losses and a val mAP."""
+    root = str(tmp_path / "data")
+    generate_synthetic_honda(root, n_sessions=5, frames_per_session=300,
+                             modal_dims={"resnet": (2, 2, 8)}, seed=0)
+    args = ["--device", "cpu", "--DATA_ROOT", root, "--name", "cli",
+            "--network", "convrtsn",
+            "--feat", "resnet", "--num_seg", "3", "--emb_dim", "16",
+            "--n_input", "8", "--n_h", "2", "--n_w", "2", "--n_C", "4",
+            "--batch_size", "32", "--event_per_batch", "48",
+            "--sess_per_batch", "1", "--max_epochs", "1", "--silent_mode"]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    subprocess.run([sys.executable, "-m",
+                    "multimodal_similarity_tpu_torch.train.trainers."
+                    "base_model_lifted", *args],
+                   check=True, env=env, cwd=str(tmp_path), timeout=300)
+    # results land under <DATA_ROOT>/results/<name>_<timestamp>
+    (run_dir,) = list((tmp_path / "data" / "results").iterdir())
+    losses, maps = _records(str(run_dir))
+    assert losses and all(np.isfinite(losses))
+    assert len(maps) == 1 and np.isfinite(maps[0])
