@@ -6,30 +6,43 @@ on one NVIDIA GPU.
 
 Phases, each fatal on failure (no error is caught):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build every CUDA kernel from ``multimodal_similarity_tpu_torch/csrc``;
-3. kernels: K1 (``batch_hard_stats_idx``) and K2 (``batch_hard_stats``)
-   against their plain PyTorch version on the card, at the trainer's shape
-   (N=512, d=128) in bf16 and f32, on exact small-integer inputs (values and
-   winner columns bit-equal, the lowest-column tie rule exercised), at
-   ragged N and d with a valid mask and 64-bit labels on both CTA sizes, at
-   N=8192 with d=128 and d=1024, and at the validation shape on the
-   trained model's embeddings; the gradient through the autograd wrapper
-   against a dense autograd oracle; kernel, plain, library
-   (``torch.matmul``) and bound times;
-4. lifted kernels: K4 (``lifted_fwd``), K5 (``lifted_bwd``) and K6
+2. build every CUDA kernel from ``multimodal_similarity_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together);
+3. batch-hard kernels: K1 (``batch_hard_stats_idx``) and K2
+   (``batch_hard_stats``) against their plain PyTorch version on the card,
+   and K3 (``batch_hard_tri_idx``, ``batch_hard_tri``) against K1/K2 bit for
+   bit, at the trainer's shape (N=512, d=128) in bf16 and f32, on exact
+   small-integer inputs (values and winner columns bit-equal, the
+   lowest-column tie rule exercised), at ragged N and d with a valid mask
+   and 64-bit labels on both CTA sizes of K1 and both tile edges of K3, on
+   rows with no valid negative, at N=8192 with d=128 and d=1024, and at the
+   validation shape on the trained model's embeddings; the gradient through
+   the autograd wrapper against a dense autograd oracle; kernel, plain,
+   library (``torch.matmul``) and bound times;
+4. the K1-vs-K3 timing grid (N x d in bf16) that sets ``use_triangular``;
+5. the fused-mining path at the kernel sweep's shapes (N=8192 and 16384,
+   d=1024, bf16): ``batch_hard_fused`` forward and backward with
+   algo="tri", "row" and "auto" (loss, stats and gradient bit-equal), the
+   no-grad stats through both kernels, launch counts;
+6. K7 (``sqdist``) against its plain version at three shapes, duplicate
+   rows included; kernel, plain, library and bound times; the public
+   ``sqdist`` as its path, with its launch count;
+7. lifted kernels: K4 (``lifted_fwd``), K5 (``lifted_bwd``) and K6
    (``lifted_fwd_tri``) against their plain PyTorch versions on the card,
    at the trainer's shape (N=512, d=128) in f32 and bf16, unnormalised
    inputs for K4/K5, ragged N and d with a valid mask and 64-bit labels,
    rows with no valid negative, N=8192 with d=128, K5 after both forwards,
    and the gradient through ``lifted_loss_fused`` against dense autograd
    (bounded and not); kernel, plain, library and bound times;
-5. trainer: the port's batch-hard trainer, ConvRTSN at full width (3 TSN
+8. trainer: the port's batch-hard trainer, ConvRTSN at full width (3 TSN
    segments of 8x8x1536 resnet maps, n_C=20, emb_dim=128, class-balanced
    batch 512, event budget 1000, 3 sessions per batch, Adam eps=0.1) on a
    synthetic Honda directory with random weights, 2 epochs; asserts finite
-   losses, one K1 launch per optimizer step and a K2 launch per validation,
-   and the device retrieval metrics against the NumPy oracle;
-6. the lifted trainer at the same width on the same directory: 2 epochs
+   losses, one winner-tracking batch-hard launch per optimizer step and a
+   stats-only one per validation (K3 or K1/K2, as ``use_triangular`` picks
+   at each shape), and the device retrieval metrics against the NumPy
+   oracle;
+9. the lifted trainer at the same width on the same directory: 2 epochs
    normalised (one K6 launch per step and per validation, one K5 launch per
    step, no K4), then 1 epoch with ``--no_normalized`` (K4 in place of K6),
    with the same metric checks, and a step breakdown of each trainer.
@@ -53,6 +66,9 @@ SOURCES = {
     "lifted_fwd": "multimodal_similarity_tpu_torch/csrc/lifted.cu",
     "lifted_bwd": "multimodal_similarity_tpu_torch/csrc/lifted.cu",
     "lifted_fwd_tri": "multimodal_similarity_tpu_torch/csrc/lifted.cu",
+    "batch_hard_tri_idx": "multimodal_similarity_tpu_torch/csrc/batch_hard.cu",
+    "batch_hard_tri": "multimodal_similarity_tpu_torch/csrc/batch_hard.cu",
+    "sqdist": "multimodal_similarity_tpu_torch/csrc/distance.cu",
 }
 REPLACES = {
     "batch_hard_stats_idx":
@@ -62,7 +78,13 @@ REPLACES = {
     "lifted_fwd": "multimodal_similarity_tpu/ops/pallas/lifted.py:85",
     "lifted_bwd": "multimodal_similarity_tpu/ops/pallas/lifted.py:126",
     "lifted_fwd_tri": "multimodal_similarity_tpu/ops/pallas/lifted_tri.py:93",
+    "batch_hard_tri_idx":
+        "multimodal_similarity_tpu/ops/pallas/batch_hard_tri.py:123",
+    "batch_hard_tri": "multimodal_similarity_tpu/ops/pallas/batch_hard_tri.py:91",
+    "sqdist": "multimodal_similarity_tpu/ops/pallas/distance.py:23",
 }
+BATCH_HARD = ("batch_hard_stats_idx", "batch_hard_stats", "batch_hard_tri_idx",
+              "batch_hard_tri")
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
@@ -135,18 +157,26 @@ def device_ms(fn, reps=10, iters=5):
     return call_ms(graph.replay, iters=iters, warmup=1) / reps
 
 
-def bound(n, d, precision, with_idx):
+def bound(n, d, precision, with_idx, triangular=False):
     """(bound_ms, bound_by): each input read once, each output written
     once; the products at the operand type's peak and the epilogue at the
-    f32 peak."""
+    f32 peak.  The triangular walk (K3) needs the products of the upper
+    triangle alone, n (n + 1) / 2 pairs, and both sides' epilogue: the same
+    n^2 pair epilogues as the row walk."""
     esize = 2 if precision == "bf16" else 4
     # operand, sq, sq_pen, valid (f32), labels (int64); fp, cn, nc (+ idx)
     nbytes = n * d * esize + n * (4 * 3 + 8) + n * 4 * (5 if with_idx else 3)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = (2.0 * n * n * d / PEAK_OPS_PER_S[precision]
+    products = (n * (n + 1) if triangular else 2.0 * n * n) * d
+    t_ops = (products / PEAK_OPS_PER_S[precision]
              + EPILOGUE_OPS * n * n / PEAK_OPS_PER_S["f32"])
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sm_count():
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def make_case(n, d, kind, gen, n_classes=7, invalid_frac=0.0,
@@ -171,11 +201,16 @@ def check_case(name, n, d, precision, kind, gen, **kw):
 
 
 def check_inputs(name, emb, labels, valid, precision, exact=False):
-    """K1 and K2 against the plain version on the same card inputs; returns
-    (operands, max_abs_err)."""
+    """K1 and K2 against the plain version on the same card inputs, and K3
+    (idx and not) against K1 and K2, bit for bit; returns (operands,
+    max_abs_err)."""
     import torch
     from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
         prep_operands, stats_kernel, stats_plain)
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri import (
+        tri_stats_kernel)
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
+        tri_block)
     ops = prep_operands(emb, labels, valid, precision)
     n, d = ops.opd.shape
     k1 = stats_kernel(ops, True)
@@ -221,10 +256,22 @@ def check_inputs(name, emb, labels, valid, precision, exact=False):
             if float(gap.max()) > 2 * tol:
                 fail(f"{name}: winner columns differ beyond a near-tie "
                      f"(gap {float(gap.max())})")
+    # K3 keeps K1's product chain and epilogue: every output bit-equal
+    k3 = tri_stats_kernel(ops, True)
+    k3n = tri_stats_kernel(ops, False)
+    torch.cuda.synchronize()
+    for got, want, kname in ((k3, k1, "batch_hard_tri_idx"),
+                             (k3n, k2, "batch_hard_tri")):
+        for a, b, what in zip(got, want, ("fp", "cn", "nc", "fpi", "cni")):
+            if not torch.equal(a, b):
+                fail(f"{name}: {kname} {what} differs from the row kernel "
+                     f"({int((a != b).sum())} rows)")
     print(f"[kernels] {name}: N={n} d={d} {precision} "
           f"{'exact' if exact else 'float'} "
           f"max_abs_err={err:.3g} (tol {tol:.3g}) nc exact, "
-          f"winner mismatches {mism} (near-ties)", flush=True)
+          f"winner mismatches {mism} (near-ties); K3 (tile "
+          f"{tri_block(n, sm_count())}) bit-equal to K1/K2, "
+          f"{int(sentinel.sum())} no-negative rows", flush=True)
     return ops, err
 
 
@@ -232,22 +279,27 @@ def time_case(name, ops, precision):
     import torch
     from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
         stats_kernel, stats_plain)
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri import (
+        tri_stats_kernel)
     n, d = ops.opd.shape
     lib_ms = device_ms(lambda: torch.matmul(ops.opd, ops.opd.T))
     rows = {}
-    for kname, with_idx in (("batch_hard_stats_idx", True),
-                            ("batch_hard_stats", False)):
+    for kname, kernel, with_idx in (
+            ("batch_hard_stats_idx", stats_kernel, True),
+            ("batch_hard_stats", stats_kernel, False),
+            ("batch_hard_tri_idx", tri_stats_kernel, True),
+            ("batch_hard_tri", tri_stats_kernel, False)):
         # in turns: plain, kernel, kernel, plain
         p_a = device_ms(lambda: stats_plain(ops, with_idx))
-        k_a = device_ms(lambda: stats_kernel(ops, with_idx))
-        k_b = device_ms(lambda: stats_kernel(ops, with_idx))
+        k_a = device_ms(lambda: kernel(ops, with_idx))
+        k_b = device_ms(lambda: kernel(ops, with_idx))
         p_b = device_ms(lambda: stats_plain(ops, with_idx))
-        b_ms, b_by = bound(n, d, precision, with_idx)
+        b_ms, b_by = bound(n, d, precision, with_idx,
+                           triangular=kernel is tri_stats_kernel)
         rows[kname] = {"ms": min(k_a, k_b), "plain_ms": min(p_a, p_b),
                        "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": lib_ms,
-                       "call_ms": call_ms(lambda: stats_kernel(ops,
-                                                               with_idx))}
+                       "call_ms": call_ms(lambda: kernel(ops, with_idx))}
         print(f"[timing] {name} {kname}: N={n} d={d} {precision} "
               + json.dumps(rows[kname]), flush=True)
     return rows
@@ -297,12 +349,241 @@ def kernel_phase():
     # ragged rows, columns and depth on the 32-row CTAs (N/32 >= the SMs)
     check_case("ragged-valid-exact-wide", 4500, 100, "bf16", "int", gen,
                invalid_frac=0.2, label_offset=2 ** 33)
+    # ragged rows and depth on K3's 32-wide tiles (the cases above take
+    # its 64-wide tiles at N=1000 and 4500)
+    check_case("ragged-valid-exact-tri32", 700, 90, "f32", "int", gen,
+               invalid_frac=0.2, label_offset=2 ** 35)
+    check_inputs("no-valid-negative", *no_negative_case(300, 100, gen),
+                 "f32")
     for d in (128, 1024):
         ops, _ = check_case(f"large-d{d}", 8192, d, "bf16", "float", gen,
                             n_classes=64)
         time_case(f"large-d{d}", ops, "bf16")
     check_gradient(gen)
     return main, main_err
+
+
+def random_operands(n, d, precision, seed, n_classes=64):
+    """Clustered unit-norm rows from a seed, on the card: the operands of
+    the timing grid and the mining path."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        prep_operands)
+    gen = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, n_classes, (n,), generator=gen)
+    centers = torch.randn(n_classes, d, generator=gen)
+    emb = centers[labels] + 0.8 * torch.randn(n, d, generator=gen)
+    emb = (emb / emb.norm(dim=1, keepdim=True)).cuda()
+    labels = labels.cuda()
+    valid = torch.ones(n).cuda()
+    return emb, labels, prep_operands(emb, labels, valid, precision)
+
+
+GATE_NS = (16, 32, 64, 128, 256, 512, 2048, 8192, 16384)
+GATE_DS = (128, 512, 1024)
+
+
+def gate_grid():
+    """K1 against K3 (and K2 against K3 without winners) in bf16 over
+    GATE_NS x GATE_DS, device time in turns (row, tri, tri, row): the
+    measurements that set ``use_triangular``.  Prints each cell with the
+    gate's choice beside the faster kernel."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import use_triangular
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        stats_kernel)
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri import (
+        tri_stats_kernel)
+    sms = sm_count()
+    agree = total = 0
+    for n in GATE_NS:
+        for d in GATE_DS:
+            _, _, ops = random_operands(n, d, "bf16", seed=n + d)
+            cell = {}
+            for with_idx, tag in ((True, "idx"), (False, "noidx")):
+                r_a = device_ms(lambda: stats_kernel(ops, with_idx))
+                t_a = device_ms(lambda: tri_stats_kernel(ops, with_idx))
+                t_b = device_ms(lambda: tri_stats_kernel(ops, with_idx))
+                r_b = device_ms(lambda: stats_kernel(ops, with_idx))
+                cell[tag] = (min(r_a, r_b), min(t_a, t_b))
+            gate = use_triangular(n, d, sms)
+            faster = cell["idx"][1] < cell["idx"][0]
+            b_ms = bound(n, d, "bf16", True, triangular=True)[0]
+            agree += gate == faster
+            total += 1
+            print(f"[gate] N={n} d={d} bf16: K1 {cell['idx'][0]:.5f} ms, "
+                  f"K3 idx {cell['idx'][1]:.5f} ms (x"
+                  f"{cell['idx'][0] / cell['idx'][1]:.3f}); K2 "
+                  f"{cell['noidx'][0]:.5f} ms, K3 {cell['noidx'][1]:.5f} ms "
+                  f"(x{cell['noidx'][0] / cell['noidx'][1]:.3f}); K3 idx "
+                  f"bound {b_ms:.5f} ms; gate "
+                  f"{'tri' if gate else 'row'}, faster "
+                  f"{'tri' if faster else 'row'}", flush=True)
+            del ops
+            torch.cuda.empty_cache()
+    print(f"[gate] use_triangular picks the faster winner-tracking kernel "
+          f"in {agree} of {total} cells", flush=True)
+
+
+MINING_NS, MINING_D = (8192, 16384), 1024
+
+
+def mining_path():
+    """The fused-mining entry points at the kernel sweep's shapes
+    (bench.py:312-314: N=8192 and 16384, d=1024, bf16, 64 classes), every
+    launch count set to 0 just before and read just after: forward and
+    backward through ``batch_hard_fused`` with algo="tri" and "row" (loss,
+    stats and gradient equal), the no-grad stats through both, and
+    algo="auto".  Returns the launch counts."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, batch_hard_fused, fused_batch_hard_stats,
+        reset_launch_counts, use_triangular)
+    sms = sm_count()
+    want = dict.fromkeys(BATCH_HARD, 0)
+    reset_launch_counts()
+    for n in MINING_NS:
+        emb, labels, _ = random_operands(n, MINING_D, "bf16", seed=n)
+        res = {}
+        t0 = time.time()
+        # the winner scatter (index_add_) takes its deterministic CUDA
+        # path here, so equal winners give bit-equal gradients
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for algo in ("tri", "row", "auto"):
+                e = emb.clone().requires_grad_(True)
+                out = batch_hard_fused(e, labels, "soft", True,
+                                       precision="bf16", algo=algo)
+                out[0].backward()
+                res[algo] = (out[0].detach(), out[4].detach(),
+                             out[5].detach(), e.grad)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        with torch.no_grad():
+            ng = {algo: fused_batch_hard_stats(emb, labels, None, "bf16",
+                                               algo)
+                  for algo in ("tri", "row")}
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        tri = use_triangular(n, MINING_D, sms)
+        want["batch_hard_tri_idx"] += 1 + tri
+        want["batch_hard_stats_idx"] += 1 + (not tri)
+        want["batch_hard_tri"] += 1
+        want["batch_hard_stats"] += 1
+        for algo in ("row", "auto"):
+            for a, b, what in zip(res["tri"], res[algo],
+                                  ("loss", "fp", "cn", "grad")):
+                if not torch.equal(a, b):
+                    fail(f"mining N={n}: {what} through algo='tri' differs "
+                         f"from algo='{algo}' (max "
+                         f"{float((a - b).abs().max()):.3g})")
+        for a, b in zip(ng["tri"], ng["row"]):
+            if not torch.equal(a, b):
+                fail(f"mining N={n}: no-grad stats differ between tri and "
+                     "row")
+        grad = res["tri"][3]
+        if not (bool(torch.isfinite(grad).all()) and
+                math.isfinite(res["tri"][0].item())):
+            fail(f"mining N={n}: non-finite loss or gradient")
+        print(f"[mining] N={n} d={MINING_D} bf16: loss {res['tri'][0].item():.6f} "
+              f"equal through tri, row and auto (auto took "
+              f"{'K3' if tri else 'K1'}); stats, winners' gradient "
+              f"(max |grad| {float(grad.abs().max()):.3g}) and no-grad "
+              f"stats bit-equal; {wall:.2f} s", flush=True)
+        del emb, res, ng
+        torch.cuda.empty_cache()
+    launches = {k: LAUNCHES[k] for k in BATCH_HARD}
+    expect_launches("mining", launches, want)
+    return launches
+
+
+def sqdist_bound(n, m, d):
+    """(bound_ms, bound_by, counts): the f32 inputs read once and the
+    [N, M] output written once, against the products and norms at the
+    f32 rate plus 4 epilogue operations per output (the norm add, the
+    fused -2x subtract, the clamp, the store's address)."""
+    nbytes = 4 * (n * d + m * d + n * m)
+    ops = 2.0 * n * m * d + 2.0 * (n + m) * d + 4.0 * n * m
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S["f32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            {"bytes": nbytes, "flop": ops})
+
+
+SQDIST_SHAPES = ((70, 50, 24), (1000, 777, 100), (8192, 8192, 128))
+
+
+def sqdist_operands(n, m, d, seed):
+    """Unit-norm rows from a seed, on the card; b's first rows repeat a's,
+    so the clamp at 0 is exercised on exact duplicates."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(n, d, generator=gen)
+    b = torch.randn(m, d, generator=gen)
+    dup = min(n, m) // 4
+    b[:dup] = a[:dup]
+    a = a / a.norm(dim=1, keepdim=True)
+    b = b / b.norm(dim=1, keepdim=True)
+    return a.cuda(), b.cuda(), dup
+
+
+def sqdist_phase():
+    """K7 against its plain version at SQDIST_SHAPES (within 1e-4: f32
+    summation order over unit-norm rows; never negative; duplicate rows at
+    distance under 1e-5), timed at the largest with the library product;
+    then the path: the public ``sqdist`` at every shape, counts set to 0
+    just before.  Returns (timing row, max_abs_err, launches)."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts, sqdist)
+    from multimodal_similarity_tpu_torch.ops.kernels.distance import (
+        sqdist_kernel, sqdist_plain)
+    worst = 0.0
+    for n, m, d in SQDIST_SHAPES:
+        a, b, dup = sqdist_operands(n, m, d, seed=n + m + d)
+        k = sqdist_kernel(a, b)
+        p = sqdist_plain(a, b)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        diag = float(k.diagonal()[:dup].max())
+        if tuple(k.shape) != (n, m) or not bool(torch.isfinite(k).all()):
+            fail(f"sqdist {n}x{m}x{d}: shape {tuple(k.shape)} or non-finite")
+        if not (err <= 1e-4 and bool((k >= 0).all()) and diag <= 1e-5):
+            fail(f"sqdist {n}x{m}x{d}: max_abs_err {err} (tol 1e-4), min "
+                 f"{float(k.min())}, duplicate-row distance {diag}")
+        worst = max(worst, err)
+        print(f"[sqdist] N={n} M={m} d={d}: max_abs_err={err:.3g} (tol "
+              f"1e-4), min {float(k.min()):.3g}, {dup} duplicate rows at "
+              f"most {diag:.3g} apart", flush=True)
+        if (n, m, d) == SQDIST_SHAPES[-1]:
+            lib = device_ms(lambda: torch.matmul(a, b.T))
+            p_a = device_ms(lambda: sqdist_plain(a, b))
+            k_a = device_ms(lambda: sqdist_kernel(a, b))
+            k_b = device_ms(lambda: sqdist_kernel(a, b))
+            p_b = device_ms(lambda: sqdist_plain(a, b))
+            b_ms, b_by, counts = sqdist_bound(n, m, d)
+            row = {"ms": min(k_a, k_b), "plain_ms": min(p_a, p_b),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                   "call_ms": call_ms(lambda: sqdist_kernel(a, b))}
+            print(f"[timing] sqdist N={n} M={m} d={d} f32 "
+                  + json.dumps(row) + " counts " + json.dumps(counts),
+                  flush=True)
+        del a, b, k, p
+        torch.cuda.empty_cache()
+    operands = [sqdist_operands(*shape, seed=sum(shape))[:2]
+                for shape in SQDIST_SHAPES]
+    reset_launch_counts()
+    outs = [sqdist(a, b) for a, b in operands]
+    torch.cuda.synchronize()
+    launches = LAUNCHES["sqdist"]
+    if launches != len(SQDIST_SHAPES) or any(
+            tuple(o.shape) != (a.shape[0], b.shape[0])
+            for o, (a, b) in zip(outs, operands)):
+        fail(f"sqdist path: {launches} launches or wrong output shapes")
+    print(f"[sqdist] path: the public sqdist at {len(SQDIST_SHAPES)} shapes, "
+          f"{launches} K7 launches", flush=True)
+    return row, worst, launches
 
 
 def sfu_rate():
@@ -712,6 +993,7 @@ def trainer_phase(root):
     """The batch-hard trainer, then the lifted trainer normalised and not;
     returns each kernel's launches from the run whose path takes it."""
     import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import use_triangular
     from multimodal_similarity_tpu_torch.train.trainers import (
         base_model_batchhard, base_model_lifted)
 
@@ -719,9 +1001,17 @@ def trainer_phase(root):
     cfg = full_width_cfg(root, "smoke_convrtsn")
     res, bh, n_val, exp, emb, labels = drive_trainer(
         root, "trainer", base_model_batchhard.train, cfg)
+    # the loss takes algo="auto": each call's kernel follows the gate at
+    # its shape (a step's batch, then the whole validation set)
+    want = dict.fromkeys(BATCH_HARD, 0)
+    tri_step = use_triangular(cfg.batch_size, cfg.emb_dim, sm_count())
+    tri_val = use_triangular(emb.shape[0], cfg.emb_dim, sm_count())
+    want["batch_hard_tri_idx" if tri_step else "batch_hard_stats_idx"] += \
+        res.step
+    want["batch_hard_tri" if tri_val else "batch_hard_stats"] += n_val
     expect_launches("trainer", bh, {
-        "batch_hard_stats_idx": res.step, "batch_hard_stats": n_val,
-        "lifted_fwd": 0, "lifted_bwd": 0, "lifted_fwd_tri": 0})
+        **want, "lifted_fwd": 0, "lifted_bwd": 0, "lifted_fwd_tri": 0,
+        "sqdist": 0})
     # K1/K2 at the validation shape the main path gave K2, on its inputs
     check_inputs("validation-shape", emb, labels,
                  torch.ones(emb.shape[0]).cuda(), "bf16")
@@ -732,7 +1022,7 @@ def trainer_phase(root):
         root, "lifted", base_model_lifted.train, cfg)
     expect_launches("lifted", lt, {
         "lifted_fwd_tri": res.step + n_val, "lifted_bwd": res.step,
-        "lifted_fwd": 0, "batch_hard_stats_idx": 0, "batch_hard_stats": 0})
+        "lifted_fwd": 0, "sqdist": 0, **dict.fromkeys(BATCH_HARD, 0)})
     # K4/K5/K6 at the validation shape the main path gave K6, on its inputs
     check_lifted("validation-shape", emb, labels,
                  torch.ones(emb.shape[0]).cuda(), "f32")
@@ -747,8 +1037,7 @@ def trainer_phase(root):
         "lifted_fwd_tri": 0})
     check_lifted("validation-shape-unnormalised", emb, labels,
                  torch.ones(emb.shape[0]).cuda(), "f32", bounded=False)
-    return {"batch_hard_stats_idx": bh["batch_hard_stats_idx"],
-            "batch_hard_stats": bh["batch_hard_stats"],
+    return {**{k: bh[k] for k in BATCH_HARD},
             "lifted_fwd_tri": lt["lifted_fwd_tri"],
             "lifted_bwd": lt["lifted_bwd"],
             "lifted_fwd": raw["lifted_fwd"]}
@@ -825,20 +1114,31 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    # K2 is held bit-equal to K1, so both carry K1's error
+    # K2 and K3 are held bit-equal to K1, so all carry K1's error
     main_rows, main_err = kernel_phase()
+    gate_grid()
+    mining = mining_path()
+    sq_row, sq_err, sq_launches = sqdist_phase()
     sfu, sms, mhz = sfu_rate()
     print(f"[lifted] SFU rate {sfu:.4g} exp/s ({SFU_PER_SM_CLOCK} per SM "
           f"per clock x {sms} SMs x {mhz:.0f} MHz max SM clock)", flush=True)
     lifted_rows, lifted_errs, _ = lifted_kernel_phase(sfu)
-    main_rows.update(lifted_rows)
-    errs = {"batch_hard_stats_idx": main_err, "batch_hard_stats": main_err,
-            **lifted_errs}
+    main_rows.update(lifted_rows, sqdist=sq_row)
+    errs = {**dict.fromkeys(BATCH_HARD, main_err), **lifted_errs,
+            "sqdist": sq_err}
 
     scratch = os.path.join(HERE, "_build")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as root:
         launches = trainer_phase(root)
+    # a batch-hard kernel the trainer's gate did not take is counted on the
+    # mining path, which runs every one of them
+    for name in BATCH_HARD:
+        path = "trainer" if launches[name] else "mining"
+        launches[name] = launches[name] or mining[name]
+        print(f"[launches] {name}: {launches[name]} on the {path} path",
+              flush=True)
+    launches["sqdist"] = sq_launches
 
     kernels = []
     for name in REPLACES:

@@ -83,67 +83,17 @@
 #include <cfloat>
 #include <cmath>
 
+#include "tile.cuh"
+
 namespace {
 
-constexpr int BK = 32;         // depth of one shared-memory slice
+constexpr int BK = msim::TILE_BK;  // depth of one shared-memory slice
 constexpr int THREADS = 256;
 constexpr float POS_INF = 1e30f;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// acc[m][q] = <e_{row0 + ty*TM + m}, e_{col0 + tx + CX*q}> for the thread
-// (ty, tx) = (tid / CX, tid % CX) of an RY x CX layout, over d in BK-deep
-// shared-memory slices (rows and depth past n and d read as 0).  Ends with
-// a barrier, so As and Bs are free on return.
-template <typename T, int RY, int CX, int TM, int TN>
-__device__ __forceinline__ void tile_product(
-    const T* __restrict__ emb, int n, int d, int row0, int col0,
-    float (*As)[RY * TM + 1], float (*Bs)[CX * TN + 1],
-    float (&acc)[TM][TN]) {
-  constexpr int BM = RY * TM;
-  constexpr int BN = CX * TN;
-  static_assert(RY * CX == THREADS, "one thread per (ty, tx)");
-  const int tid = threadIdx.x;
-  const int tx = tid % CX;
-  const int ty = tid / CX;
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[m][q] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    // consecutive threads read consecutive k of one row: coalesced; the
-    // odd row pitch keeps the transposed stores on distinct banks
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, k = e % BK;
-      const int gi = row0 + r, gk = k0 + k;
-      As[k][r] = (gi < n && gk < d) ? to_f32(emb[(size_t)gi * d + gk]) : 0.f;
-    }
-    for (int e = tid; e < BN * BK; e += THREADS) {
-      const int c = e / BK, k = e % BK;
-      const int gj = col0 + c, gk = k0 + k;
-      Bs[k][c] = (gj < n && gk < d) ? to_f32(emb[(size_t)gj * d + gk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int m = 0; m < TM; ++m) a[m] = As[k][ty * TM + m];
-#pragma unroll
-      for (int q = 0; q < TN; ++q) b[q] = Bs[k][tx + CX * q];
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) acc[m][q] = fmaf(a[m], b[q], acc[m][q]);
-    }
-    __syncthreads();
-  }
-}
+using msim::tile_product;
+using msim::to_f32;
 
 // merge a (max, sum of exp) pair into another; both maxima are finite
 __device__ __forceinline__ void lse_merge(float& m, float& s, float om,
@@ -189,7 +139,8 @@ lifted_fwd_kernel(const T* __restrict__ emb, int n, int d,
 
   for (int col0 = 0; col0 < n; col0 += BN) {
     float acc[TM][TN];
-    tile_product<T, RY, CX, TM, TN>(emb, n, d, row0, col0, As, Bs, acc);
+    tile_product<T, RY, CX, TM, TN>(emb, n, emb, n, d, row0, col0, As,
+                                    Bs, acc);
 
     float sqp[TN], vb[TN];
     long long lb[TN];
@@ -317,7 +268,8 @@ lifted_bwd_kernel(const T* __restrict__ emb, int n, int d, int d_pad,
 
   for (int col0 = 0; col0 < n; col0 += BN) {
     float acc[TM][TN];
-    tile_product<T, RY, CX, TM, TN>(emb, n, d, row0, col0, As, Bs, acc);
+    tile_product<T, RY, CX, TM, TN>(emb, n, emb, n, d, row0, col0, As,
+                                    Bs, acc);
 
     // C_ij + C_ji for this thread's pairs, staged in Cs
 #pragma unroll
@@ -434,7 +386,7 @@ lifted_tri_kernel(const T* __restrict__ emb, int n, int d,
   const int ty = tid / R;
 
   float acc[TM][TM];
-  tile_product<T, R, R, TM, TM>(emb, n, d, row0, col0, As, Bs, acc);
+  tile_product<T, R, R, TM, TM>(emb, n, emb, n, d, row0, col0, As, Bs, acc);
 
   float sq_j[TM], v_j[TM];
   long long l_j[TM];

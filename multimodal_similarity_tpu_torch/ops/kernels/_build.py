@@ -3,8 +3,9 @@ them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` at first use, into ``_build/`` beside the package (listed in
-``.gitignore``).  The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``.gitignore``).  The library's file name carries a hash of its source, of
+the shared ``csrc/*.cuh`` headers and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -21,7 +22,7 @@ from typing import Callable, Dict, Sequence
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("batch_hard", "lifted")
+SOURCES = ("batch_hard", "lifted", "distance")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,7 +49,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers go into every source's hash: an edited header
+    # rebuilds every library that may include it
+    src = b"".join(path.read_bytes() for path in
+                   [CSRC_DIR / f"{name}.cu",
+                    *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -19,9 +19,12 @@ Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes :func:`stats_plain`, the dense PyTorch version
 of the same function.  ``LAUNCHES`` counts kernel launches only.
 
-``algo="auto"`` resolves to this row kernel at every ``d``: the triangular
-kernel (K3, ``ops/pallas/batch_hard_tri.py``) is not ported yet, so
-``algo="tri"`` raises ``NotImplementedError``.
+The mining entry points (:func:`fused_batch_hard_stats`,
+:func:`batch_hard_fused`) take ``algo``: "row" launches K1/K2, "tri" the
+triangular kernel K3 (``ops/kernels/batch_hard_tri.py``, the same function
+from half the products), and "auto" follows :func:`use_triangular`, a gate
+measured on an H100 (``PERF.md``), not the TPU's.  On a CPU tensor every
+``algo`` takes :func:`stats_plain`.
 
 Deviation from the TPU kernel, and its tolerance.  With ``precision="bf16"``
 the operands are rounded to bf16 once (exact f32 row norms are kept) and the
@@ -179,10 +182,41 @@ def stats_kernel(ops: Operands, with_idx: bool):
     return (fp, cn, nc, fpi, cni) if with_idx else (fp, cn, nc)
 
 
-def batch_hard_stats(ops: Operands, with_idx: bool):
-    """The kernel for CUDA operands, the plain version for CPU ones."""
+def use_triangular(n: int, d: int, sms: int) -> bool:
+    """The "auto" gate between K3 (True) and K1/K2 for N rows of width d on
+    a card with ``sms`` SMs.
+
+    Measured on an H100 (132 SMs) by ``chip_smoke.py``'s timing grid, N
+    from 16 to 16384 by d of 128, 512 and 1024 in bf16 (``PERF.md``): K3
+    is faster than K1 in every cell, and than K2 without winners, by 1.2x
+    to 9x.  It does a subset of the row walk's work (half the products,
+    the same epilogue per ordered pair) and spreads its tile pairs over the
+    SMs at every N, and its combine pass costs less than the products it
+    saves even at N=16.  So the gate takes K3 at every shape; it keeps N, d
+    and the SM count as its inputs for the kernels that will move the
+    crossover (tensor cores in K1 first).  The TPU's gate (d >= 512 and
+    four VMEM blocks, ``ops/pallas/batch_hard.py:306-322``) does not apply
+    here."""
+    return True
+
+
+def batch_hard_stats(ops: Operands, with_idx: bool, algo: str = "auto"):
+    """The kernel that ``algo`` names for CUDA operands, the plain version
+    for CPU ones."""
+    if algo not in ("auto", "row", "tri"):
+        raise ValueError(f"unknown algo {algo!r}")
     if on_cpu(ops, "batch-hard"):
         return stats_plain(ops, with_idx)
+    if algo == "auto":
+        n, d = ops.opd.shape
+        sms = torch.cuda.get_device_properties(
+            ops.opd.device).multi_processor_count
+        algo = "tri" if use_triangular(n, d, sms) else "row"
+    if algo == "tri":
+        # imported here: batch_hard_tri builds on this module
+        from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri \
+            import tri_stats_kernel
+        return tri_stats_kernel(ops, with_idx)
     return stats_kernel(ops, with_idx)
 
 
@@ -203,14 +237,15 @@ def winning_pair_grad(emb, fp, cn, fpi, cni, g_fp, g_cn):
 
 
 class _FusedStats(torch.autograd.Function):
-    """(fp, cn, nc) with the winner-pair gradient.  The forward launches K1
-    when ``emb`` needs a gradient and K2 when it does not."""
+    """(fp, cn, nc) with the winner-pair gradient.  The forward launches the
+    winner-tracking kernel (K1, or K3 idx) when ``emb`` needs a gradient and
+    the stats-only one (K2, or K3) when it does not."""
 
     @staticmethod
-    def forward(ctx, emb, labels, valid_f, precision):
+    def forward(ctx, emb, labels, valid_f, precision, algo):
         with_idx = ctx.needs_input_grad[0]
         ops = prep_operands(emb, labels, valid_f, precision)
-        out = batch_hard_stats(ops, with_idx)
+        out = batch_hard_stats(ops, with_idx, algo)
         fp, cn, nc = out[:3]
         if with_idx:
             ctx.emb_dtype = emb.dtype
@@ -223,16 +258,7 @@ class _FusedStats(torch.autograd.Function):
         emb, fp, cn, fpi, cni = ctx.saved_tensors
         grad = winning_pair_grad(emb, fp, cn, fpi.long(), cni.long(),
                                  g_fp, g_cn)
-        return grad.to(ctx.emb_dtype), None, None, None
-
-
-def _resolve_algo(algo: str) -> None:
-    if algo == "tri":
-        raise NotImplementedError(
-            "the triangular batch-hard kernel (K3, ops/pallas/"
-            "batch_hard_tri.py) is not ported yet; use algo='row' or 'auto'")
-    if algo not in ("auto", "row"):
-        raise ValueError(f"unknown algo {algo!r}")
+        return grad.to(ctx.emb_dtype), None, None, None, None
 
 
 def fused_batch_hard_stats(emb: torch.Tensor, labels: torch.Tensor,
@@ -243,20 +269,22 @@ def fused_batch_hard_stats(emb: torch.Tensor, labels: torch.Tensor,
     Squared euclidean distances; ``valid`` masks padding rows out of the
     positive and negative candidate sets.  Differentiable with respect to
     ``emb`` through each row's winning pair.  precision: "bf16" (default)
-    or "f32".  algo: "auto" and "row" take the row kernel; "tri" raises.
+    or "f32".  algo: "row" (K1/K2), "tri" (K3) or "auto"
+    (:func:`use_triangular`); the same stats, bit for bit, from each.
+    Counterpart of the JAX ``fused_batch_hard_stats``.
     """
-    _resolve_algo(algo)
     n = emb.shape[0]
     valid_f = (torch.ones(n, dtype=torch.float32, device=emb.device)
                if valid is None else valid.reshape(-1).float())
-    return _FusedStats.apply(emb, labels, valid_f, precision)
+    return _FusedStats.apply(emb, labels, valid_f, precision, algo)
 
 
 def batch_hard_fused(emb: torch.Tensor, pids: torch.Tensor, margin="soft",
                      weighted: bool = True,
                      valid: Optional[torch.Tensor] = None,
                      precision: str = "bf16", algo: str = "auto"):
-    """Batch-hard loss from embeddings through the fused stats.
+    """Batch-hard loss from embeddings through the fused stats (the JAX
+    ``batch_hard_pallas``; ``algo`` as in :func:`fused_batch_hard_stats`).
 
     Same return tuple as ``ops.losses.batch_hard``: (loss, num_active, diff,
     weights, furthest_positive, closest_negative)."""

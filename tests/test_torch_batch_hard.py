@@ -221,10 +221,13 @@ def test_no_grad_path_matches_grad_path(rng):
 
 
 def test_algo_dispatch():
+    """On the CPU every algo takes the plain version: "tri" (K3 on a card)
+    equals "row" (K1/K2); an unknown algo raises."""
     emb = torch.randn(8, 4)
     labels = torch.tensor([1, 1, 2, 2, 3, 3, 4, 4])
-    with pytest.raises(NotImplementedError, match="triangular"):
-        fused_batch_hard_stats(emb, labels, algo="tri")
+    tri = fused_batch_hard_stats(emb, labels, algo="tri")
+    for x, y in zip(tri, fused_batch_hard_stats(emb, labels, algo="row")):
+        assert torch.equal(x, y)
     with pytest.raises(ValueError, match="algo"):
         fused_batch_hard_stats(emb, labels, algo="ring")
     auto = fused_batch_hard_stats(emb, labels, algo="auto")
