@@ -11,10 +11,12 @@ Phases, each fatal on failure (no error is caught):
 3. batch-hard kernels: K1 (``batch_hard_stats_idx``) and K2
    (``batch_hard_stats``) against their plain PyTorch version on the card,
    and K3 (``batch_hard_tri_idx``, ``batch_hard_tri``) against K1/K2 bit for
-   bit, at the trainer's shape (N=512, d=128) in bf16 and f32, on exact
-   small-integer inputs (values and winner columns bit-equal, the
-   lowest-column tie rule exercised), at ragged N and d with a valid mask
-   and 64-bit labels on both CTA sizes of K1 and both tile edges of K3, on
+   bit (bf16 on the tensor cores, f32 on FMA), at the trainer's shape
+   (N=512, d=128) in bf16 and f32, on exact small-integer inputs (values
+   and winner columns bit-equal, the lowest-column tie rule exercised), at
+   ragged N and d with a valid mask and 64-bit labels on both tile edges
+   of K3 in each type, at bf16 depths TMA needs padded (d=90, 100; exact
+   and float), on an operand view whose base is not 16-byte aligned, on
    rows with no valid negative, at N=8192 with d=128 and d=1024, and at the
    validation shape on the trained model's embeddings; the gradient through
    the autograd wrapper against a dense autograd oracle; kernel, plain,
@@ -23,7 +25,8 @@ Phases, each fatal on failure (no error is caught):
 5. the fused-mining path at the kernel sweep's shapes (N=8192 and 16384,
    d=1024, bf16): ``batch_hard_fused`` forward and backward with
    algo="tri", "row" and "auto" (loss, stats and gradient bit-equal), the
-   no-grad stats through both kernels, launch counts;
+   no-grad stats through both kernels, launch counts; then the mining-call
+   time of each entry point per ``algo``;
 6. K7 (``sqdist``) against its plain version at three shapes, duplicate
    rows included; kernel, plain, library and bound times; the public
    ``sqdist`` as its path, with its launch count;
@@ -208,9 +211,7 @@ def check_inputs(name, emb, labels, valid, precision, exact=False):
     from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
         prep_operands, stats_kernel, stats_plain)
     from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri import (
-        tri_stats_kernel)
-    from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
-        tri_block)
+        tri_stats_kernel, tri_tile)
     ops = prep_operands(emb, labels, valid, precision)
     n, d = ops.opd.shape
     k1 = stats_kernel(ops, True)
@@ -270,9 +271,42 @@ def check_inputs(name, emb, labels, valid, precision, exact=False):
           f"{'exact' if exact else 'float'} "
           f"max_abs_err={err:.3g} (tol {tol:.3g}) nc exact, "
           f"winner mismatches {mism} (near-ties); K3 (tile "
-          f"{tri_block(n, sm_count())}) bit-equal to K1/K2, "
+          f"{tri_tile(n, sm_count(), precision == 'bf16')}) bit-equal to "
+          f"K1/K2, "
           f"{int(sentinel.sum())} no-negative rows", flush=True)
     return ops, err
+
+
+def check_unaligned(gen):
+    """K1/K2 and K3 on a bf16 operand view whose base is 2 bytes past a
+    16-byte boundary (the wrappers copy it for TMA), bit-equal to the same
+    kernels on the aligned operand."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        prep_operands, stats_kernel)
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri import (
+        tri_stats_kernel)
+    ops = prep_operands(*make_case(1000, 72, "float", gen, invalid_frac=0.1),
+                        "bf16")
+    flat = torch.empty(ops.opd.numel() + 1, dtype=ops.opd.dtype,
+                       device=ops.opd.device)
+    view = flat[1:].view(ops.opd.shape)
+    view.copy_(ops.opd)
+    if view.data_ptr() % 16 == 0:
+        fail("unaligned: the view is 16-byte aligned")
+    moved = ops._replace(opd=view)
+    for kernel in (stats_kernel, tri_stats_kernel):
+        for with_idx in (True, False):
+            want = kernel(ops, with_idx)
+            got = kernel(moved, with_idx)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                if not torch.equal(a, b):
+                    fail(f"unaligned: {kernel.__name__} (with_idx="
+                         f"{with_idx}) differs on the unaligned view")
+    print(f"[kernels] unaligned-view: N=1000 d=72 bf16, operand base at "
+          f"{view.data_ptr() % 16} bytes past 16: K1/K2 and K3 bit-equal "
+          f"to the aligned operand", flush=True)
 
 
 def time_case(name, ops, precision):
@@ -346,19 +380,31 @@ def kernel_phase():
                invalid_frac=0.1, label_offset=2 ** 40)
     check_case("ragged-valid-exact", 777, 128, "bf16", "int", gen,
                invalid_frac=0.2, label_offset=2 ** 33)
-    # ragged rows, columns and depth on the 32-row CTAs (N/32 >= the SMs)
+    # bf16 at a depth that is not a multiple of 8 (padded for TMA): ragged
+    # rows, columns and k-slice, K3's 128-wide tiles at N=4500
     check_case("ragged-valid-exact-wide", 4500, 100, "bf16", "int", gen,
                invalid_frac=0.2, label_offset=2 ** 33)
-    # ragged rows and depth on K3's 32-wide tiles (the cases above take
-    # its 64-wide tiles at N=1000 and 4500)
+    # ragged rows and depth on the f32 K3's 32-wide tiles (the f32 case
+    # above takes its 64-wide tiles at N=1000)
     check_case("ragged-valid-exact-tri32", 700, 90, "f32", "int", gen,
                invalid_frac=0.2, label_offset=2 ** 35)
     check_inputs("no-valid-negative", *no_negative_case(300, 100, gen),
                  "f32")
+    # more bf16 depths that TMA needs padded, exact and float, on K3's
+    # 64-wide (N=777) and 128-wide (N=4500) tiles; then an operand whose
+    # base is not 16-byte aligned
+    check_case("ragged-d90-exact", 777, 90, "bf16", "int", gen,
+               invalid_frac=0.2, label_offset=2 ** 34)
+    check_case("ragged-d90-float", 777, 90, "bf16", "float", gen,
+               invalid_frac=0.2, label_offset=2 ** 34)
+    check_case("ragged-d100-float", 4500, 100, "bf16", "float", gen,
+               invalid_frac=0.2, label_offset=2 ** 33)
+    check_unaligned(gen)
     for d in (128, 1024):
         ops, _ = check_case(f"large-d{d}", 8192, d, "bf16", "float", gen,
                             n_classes=64)
         time_case(f"large-d{d}", ops, "bf16")
+        k3_combine_cost(ops)
     check_gradient(gen)
     return main, main_err
 
@@ -379,7 +425,7 @@ def random_operands(n, d, precision, seed, n_classes=64):
     return emb, labels, prep_operands(emb, labels, valid, precision)
 
 
-GATE_NS = (16, 32, 64, 128, 256, 512, 2048, 8192, 16384)
+GATE_NS = (16, 32, 64, 128, 256, 512, 2048, 4096, 8192, 16384)
 GATE_DS = (128, 512, 1024)
 
 
@@ -495,6 +541,42 @@ def mining_path():
     launches = {k: LAUNCHES[k] for k in BATCH_HARD}
     expect_launches("mining", launches, want)
     return launches
+
+
+def mining_times():
+    """The mining-call time (PERF.md section 2) at MINING_NS x MINING_D in
+    bf16, per ``algo``: one ``batch_hard_fused`` forward and backward, and
+    one no-grad ``fused_batch_hard_stats``, per call with the host work
+    included (CUDA events around 20 back-to-back calls, the lower of two
+    runs in turns).  Runs after the mining path's launch counts are
+    read."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        batch_hard_fused, fused_batch_hard_stats)
+    times = {}
+    algos = ("tri", "row", "auto")
+    for n in MINING_NS:
+        emb, labels, _ = random_operands(n, MINING_D, "bf16", seed=n)
+        row = {algo: {"fwd_bwd_ms": math.inf, "no_grad_ms": math.inf}
+               for algo in algos}
+        # in turns (tri, row, auto, auto, row, tri), the lower of the two
+        for algo in algos + algos[::-1]:
+            def fwd_bwd():
+                e = emb.detach().requires_grad_(True)
+                batch_hard_fused(e, labels, "soft", True, precision="bf16",
+                                 algo=algo)[0].backward()
+
+            def no_grad():
+                with torch.no_grad():
+                    fused_batch_hard_stats(emb, labels, None, "bf16", algo)
+            for key, fn in (("fwd_bwd_ms", fwd_bwd), ("no_grad_ms", no_grad)):
+                row[algo][key] = min(row[algo][key], call_ms(fn, iters=20))
+        times[n] = row
+        print(f"[mining] call_ms N={n} d={MINING_D} bf16 " + json.dumps(row),
+              flush=True)
+        del emb
+        torch.cuda.empty_cache()
+    return times
 
 
 def sqdist_bound(n, m, d):
@@ -801,39 +883,65 @@ def check_lifted_gradient(gen, bounded):
              "autograd")
 
 
-def k6_combine_cost(ops, calls=20):
-    """Device time of K6's two launches apart (the tile walk and the
-    ascending-order reduce of its partials), from a torch.profiler trace
-    of ``calls`` calls; "not measured" when the trace has no device
-    time."""
+def pass_times(call, keys, calls=20):
+    """Device time per call of each kernel whose name contains one of
+    ``keys``, from a torch.profiler trace of ``calls`` calls, or None when
+    the trace has no device time for one of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
-        lifted_fwd_tri_kernel)
     for _ in range(3):
-        lifted_fwd_tri_kernel(ops, MARGIN)
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            lifted_fwd_tri_kernel(ops, MARGIN)
+            call()
         torch.cuda.synchronize()
     per = {}
     for evt in prof.key_averages():
-        for key in ("lifted_tri_kernel", "lifted_tri_reduce"):
+        for key in keys:
             if key in evt.key:
                 us = max(getattr(evt, attr, 0) or 0 for attr in (
                     "self_device_time_total", "self_cuda_time_total",
                     "device_time_total", "cuda_time_total"))
                 per[key] = per.get(key, 0.0) + us / calls / 1e3
+    if len(per) == len(keys) and all(v > 0 for v in per.values()):
+        return per
+    return None
+
+
+def k6_combine_cost(ops):
+    """K6's two launches apart (the tile walk and the ascending-order
+    reduce of its partials)."""
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
+        lifted_fwd_tri_kernel)
+    per = pass_times(lambda: lifted_fwd_tri_kernel(ops, MARGIN),
+                     ("lifted_tri_kernel", "lifted_tri_reduce"))
     n = ops.opd.shape[0]
-    if len(per) == 2 and all(v > 0 for v in per.values()):
+    if per:
         print(f"[lifted] K6 at N={n}: tile walk {per['lifted_tri_kernel']:.5f}"
               f" ms, combine {per['lifted_tri_reduce']:.5f} ms per call "
               "(torch.profiler device time)", flush=True)
     else:
-        print(f"[lifted] K6 at N={n}: combine cost not measured (the "
-              f"profiler trace held {per})", flush=True)
+        print(f"[lifted] K6 at N={n}: combine cost not measured (no device "
+              "time in the profiler trace)", flush=True)
+
+
+def k3_combine_cost(ops):
+    """K3's two launches apart (the tile walk and the ascending-order
+    combine), with winners."""
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri import (
+        tri_stats_kernel)
+    keys = ("batch_hard_tri_tc", "batch_hard_tri_combine")
+    per = pass_times(lambda: tri_stats_kernel(ops, True), keys)
+    n, d = ops.opd.shape
+    if per:
+        print(f"[timing] K3 idx at N={n} d={d}: tile walk "
+              f"{per[keys[0]]:.5f} ms, combine {per[keys[1]]:.5f} ms per "
+              "call (torch.profiler device time)", flush=True)
+    else:
+        print(f"[timing] K3 idx at N={n} d={d}: combine cost not measured "
+              "(no device time in the profiler trace)", flush=True)
 
 
 def no_negative_case(n, d, gen):
@@ -1118,6 +1226,7 @@ def main():
     main_rows, main_err = kernel_phase()
     gate_grid()
     mining = mining_path()
+    mining_times()
     sq_row, sq_err, sq_launches = sqdist_phase()
     sfu, sms, mhz = sfu_rate()
     print(f"[lifted] SFU rate {sfu:.4g} exp/s ({SFU_PER_SM_CLOCK} per SM "

@@ -15,6 +15,23 @@ Kernels (CUDA C++, ``csrc/batch_hard.cu``, one source templated on
 * ``batch_hard_stats`` (K2) replaces ``_stats_kernel_noidx``: the stats
   alone, launched when no gradient is needed.
 
+Both are bound by their operations on an H100: 2 N^2 d product flops plus
+a masked epilogue per pair, against inputs of N d operand values.  A bf16
+operand runs its products on the tensor cores (``wgmma``, bf16 x bf16
+summed in f32, as the TPU kernel's matrix unit), fed by TMA through a ring
+of shared-memory stages (``csrc/wgmma_tile.cuh``); 64-row blocks walk
+128-column tiles with the epilogue on the accumulator fragments.  An f32
+operand keeps the f32 FMA design of the first port (TF32 would break the
+1e-4 parity with the JAX package).
+
+TMA takes a bf16 operand whose rows are a multiple of 16 bytes and whose
+base is 16-byte aligned.  So :func:`tma_operand`, called by the kernel
+wrappers, pads a depth that is not a multiple of 8 with zero columns
+(:func:`pad_depth`, which changes no inner product) and copies a base that
+is not 16-byte aligned; operands that already qualify (every one that
+:func:`prep_operands` makes at a depth that is a multiple of 8) pass
+through without a copy.
+
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes :func:`stats_plain`, the dense PyTorch version
 of the same function.  ``LAUNCHES`` counts kernel launches only.
@@ -44,6 +61,7 @@ anchor and -2(a-b) scattered into the winner (:func:`winning_pair_grad`).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -146,6 +164,37 @@ def check_operands(ops: Operands, who: str):
     return n, d
 
 
+def pad_depth(opd: torch.Tensor, multiple: int = 8) -> torch.Tensor:
+    """``opd`` [N, d] with zero columns appended up to the next multiple of
+    ``multiple`` (itself when d already is one).  Zero columns add nothing
+    to any inner product, so every statistic is unchanged."""
+    extra = -opd.shape[1] % multiple
+    return F.pad(opd, (0, extra)) if extra else opd
+
+
+def tma_operand(opd: torch.Tensor) -> torch.Tensor:
+    """The operand as the kernels take it: a bf16 operand padded to a depth
+    that is a multiple of 8 and copied when its base is not 16-byte
+    aligned (TMA's rules); an f32 operand as it is."""
+    if opd.dtype != torch.bfloat16:
+        return opd
+    opd = pad_depth(opd)
+    if opd.data_ptr() % 16:
+        opd = opd.clone()
+    return opd
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once per device index."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
 def on_cpu(ops: Operands, what: str) -> bool:
     """True for CPU operands (the plain version), False for CUDA ones (the
     kernel); raises for any other device: no fallback."""
@@ -159,8 +208,9 @@ def on_cpu(ops: Operands, what: str) -> bool:
 def stats_kernel(ops: Operands, with_idx: bool):
     """Launch K1 (``with_idx``) or K2 on the operands' CUDA device, on the
     current stream.  Same returns as :func:`stats_plain`."""
-    opd = ops.opd
-    n, d = check_operands(ops, "stats_kernel")
+    n, _ = check_operands(ops, "stats_kernel")
+    opd = tma_operand(ops.opd)
+    d = opd.shape[1]
     fn = bind("batch_hard", "batch_hard_stats", _ARGTYPES)
     fp, cn, nc = (torch.empty(n, dtype=torch.float32, device=opd.device)
                   for _ in range(3))
@@ -187,17 +237,29 @@ def use_triangular(n: int, d: int, sms: int) -> bool:
     a card with ``sms`` SMs.
 
     Measured on an H100 (132 SMs) by ``chip_smoke.py``'s timing grid, N
-    from 16 to 16384 by d of 128, 512 and 1024 in bf16 (``PERF.md``): K3
-    is faster than K1 in every cell, and than K2 without winners, by 1.2x
-    to 9x.  It does a subset of the row walk's work (half the products,
-    the same epilogue per ordered pair) and spreads its tile pairs over the
-    SMs at every N, and its combine pass costs less than the products it
-    saves even at N=16.  So the gate takes K3 at every shape; it keeps N, d
-    and the SM count as its inputs for the kernels that will move the
-    crossover (tensor cores in K1 first).  The TPU's gate (d >= 512 and
-    four VMEM blocks, ``ops/pallas/batch_hard.py:306-322``) does not apply
-    here."""
-    return True
+    from 16 to 16384 by d of 128, 512 and 1024 in bf16, winner-tracking
+    kernels (``PERF.md``).  Since both run on the tensor cores:
+
+    * N <= 128: K1, one launch against K3's two (tile walk and combine),
+      which the products saved cannot pay for (K1 1.1x-1.6x faster);
+    * d >= 512: K3 from N = 256 up: the products weigh, and K3 needs half
+      of them (1.1x-2.9x);
+    * d < 512: the masked epilogue, which K3 runs for both sides of every
+      pair, weighs more than the products; K3 wins while K1's 64-row
+      blocks leave SMs idle (N = 512 to 4096: 1.2x-1.5x) and loses once
+      they fill three quarters of the SMs (N = 8192, 16384: K1 1.15x,
+      1.26x faster), and at N = 256 (K1 1.15x).
+
+    The rule below reproduces the faster kernel in every measured cell.
+    The TPU's gate (d >= 512 and four VMEM blocks,
+    ``ops/pallas/batch_hard.py:306-322``) does not apply here."""
+    if n <= 128:
+        return False
+    if d >= 512:
+        return True
+    if n <= 256:
+        return False
+    return 4 * -(-n // 64) < 3 * sms
 
 
 def batch_hard_stats(ops: Operands, with_idx: bool, algo: str = "auto"):
@@ -209,9 +271,8 @@ def batch_hard_stats(ops: Operands, with_idx: bool, algo: str = "auto"):
         return stats_plain(ops, with_idx)
     if algo == "auto":
         n, d = ops.opd.shape
-        sms = torch.cuda.get_device_properties(
-            ops.opd.device).multi_processor_count
-        algo = "tri" if use_triangular(n, d, sms) else "row"
+        algo = "tri" if use_triangular(n, d, sm_count(ops.opd.device)) \
+            else "row"
     if algo == "tri":
         # imported here: batch_hard_tri builds on this module
         from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri \

@@ -24,7 +24,7 @@ from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
 from multimodal_similarity_tpu_torch.ops.kernels import (
     LAUNCHES, batch_hard_fused, fused_batch_hard_stats)
 from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
-    prep_operands, stats_plain)
+    pad_depth, prep_operands, stats_plain, tma_operand)
 from multimodal_similarity_tpu_torch.ops.losses import batch_hard
 
 
@@ -234,3 +234,40 @@ def test_algo_dispatch():
     row = fused_batch_hard_stats(emb, labels, algo="row")
     for x, y in zip(auto, row):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+@pytest.mark.parametrize("with_idx", [True, False])
+@pytest.mark.parametrize("d", [1, 7, 8, 24, 72, 90, 100])
+def test_pad_depth_keeps_stats(rng, d, with_idx, precision):
+    """The zero columns that TMA's 16-byte rows need change no statistic
+    and no winner: stats_plain on the padded operand is bit-identical."""
+    emb, labels = _clustered(rng, n=45, dim=d)
+    valid = (rng.rand(45) > 0.2).astype(np.float32)
+    ops = prep_operands(_t(emb), _t(labels), _t(valid), precision)
+    padded = pad_depth(ops.opd)
+    assert padded.shape == (45, -(-d // 8) * 8)
+    assert padded.dtype == ops.opd.dtype
+    assert torch.equal(padded[:, :d], ops.opd)
+    assert not padded[:, d:].any()
+    for got, want in zip(stats_plain(ops._replace(opd=padded), with_idx),
+                         stats_plain(ops, with_idx)):
+        assert torch.equal(got, want)
+
+
+def test_tma_operand_pads_and_aligns_bf16_only():
+    """A bf16 operand is padded to a depth that is a multiple of 8 and
+    copied when its base is not 16-byte aligned; one that qualifies, and
+    any f32 operand, passes through as it is."""
+    base = torch.randn(6 * 16 + 1).to(torch.bfloat16)
+    view = base[1:].view(6, 16)               # 2 bytes past the base
+    assert view.data_ptr() % 16 != 0
+    fixed = tma_operand(view)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, view)
+    ragged = torch.randn(5, 90).to(torch.bfloat16)
+    out = tma_operand(ragged)
+    assert out.shape == (5, 96) and torch.equal(out[:, :90], ragged)
+    aligned = torch.randn(5, 64).to(torch.bfloat16)
+    assert tma_operand(aligned) is aligned
+    f32 = torch.randn(5, 90)
+    assert tma_operand(f32) is f32

@@ -24,7 +24,7 @@ from multimodal_similarity_tpu_torch.ops.kernels import (
 from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
     Operands, batch_hard_stats, prep_operands)
 from multimodal_similarity_tpu_torch.ops.kernels.batch_hard_tri import (
-    tri_stats_kernel)
+    tri_stats_kernel, tri_tile)
 from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import tri_block
 
 BLOCK = 16
@@ -182,23 +182,57 @@ def test_kernel_entry_needs_cuda_and_plain_needs_cpu():
         batch_hard_stats(meta, False, "tri")
 
 
-# (n, d, sms) -> (use_triangular, K3's tile edge) on an H100 (132 SMs) and
-# a smaller card: K3 at every measured shape, from N=16 (one tile pair)
-# through the trainer's N=512 to the kernel sweep's N=16384
+# (n, d, sms) -> (use_triangular, K3's bf16 tile edge) on an H100 (132 SMs)
+# and a smaller card, as measured: K1 up to N=128 and at d=128 once its
+# 64-row blocks fill the SMs (N=8192, 16384) or at N=256; K3 otherwise,
+# the trainer's N=512 and the kernel sweep's d=1024 included; 128-wide
+# tiles once their pairs fill the SMs
 GATE_TABLE = [
-    (16, 128, 132, True, 32),
-    (64, 1024, 132, True, 32),
-    (128, 128, 132, True, 32),
-    (512, 128, 132, True, 32),
-    (700, 90, 132, True, 32),
+    (16, 128, 132, False, 64),
+    (64, 1024, 132, False, 64),
+    (128, 128, 132, False, 64),
+    (512, 128, 132, True, 64),
+    (700, 90, 132, True, 64),
     (1000, 72, 132, True, 64),
-    (8192, 1024, 132, True, 64),
-    (16384, 1024, 132, True, 64),
+    (8192, 1024, 132, True, 128),
+    (16384, 1024, 132, True, 128),
     (512, 128, 16, True, 64),
+    (256, 128, 132, False, 64),
+    (256, 512, 132, True, 64),
+    (4096, 128, 132, True, 128),
+    (8192, 128, 132, False, 128),
+    (16384, 512, 132, True, 128),
+    (2048, 128, 16, False, 128),
 ]
 
 
 @pytest.mark.parametrize("n,d,sms,tri,tile", GATE_TABLE)
 def test_gate_and_tile_table(n, d, sms, tri, tile):
     assert use_triangular(n, d, sms) is tri
-    assert tri_block(n, sms) == tile
+    assert tri_tile(n, sms, True) == tile
+
+
+# (n, sms, bf16) -> K3's tile edge: bf16 takes 128 from the first N whose
+# 128-row tile pairs fill the SMs (16 tiles, 136 pairs, on 132 SMs: N >
+# 1920), else 64; f32 keeps K6's FMA tiles (64 once their pairs fill the
+# SMs, else 32)
+TILE_TABLE = [
+    (1, 132, True, 64),
+    (1920, 132, True, 64),
+    (1921, 132, True, 128),
+    (4500, 132, True, 128),
+    (768, 16, True, 128),
+    (640, 16, True, 64),
+    (512, 16, True, 64),
+    (512, 132, False, 32),
+    (700, 132, False, 32),
+    (1000, 132, False, 64),
+    (8192, 132, False, 64),
+]
+
+
+@pytest.mark.parametrize("n,sms,bf16,tile", TILE_TABLE)
+def test_tri_tile_table(n, sms, bf16, tile):
+    assert tri_tile(n, sms, bf16) == tile
+    if not bf16:
+        assert tile == tri_block(n, sms)
