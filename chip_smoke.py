@@ -30,13 +30,16 @@ Phases, each fatal on failure (no error is caught):
 6. K7 (``sqdist``) against its plain version at three shapes, duplicate
    rows included; kernel, plain, library and bound times; the public
    ``sqdist`` as its path, with its launch count;
-7. lifted kernels: K4 (``lifted_fwd``), K5 (``lifted_bwd``) and K6
-   (``lifted_fwd_tri``) against their plain PyTorch versions on the card,
-   at the trainer's shape (N=512, d=128) in f32 and bf16, unnormalised
-   inputs for K4/K5, ragged N and d with a valid mask and 64-bit labels,
-   rows with no valid negative, N=8192 with d=128, K5 after both forwards,
-   and the gradient through ``lifted_loss_fused`` against dense autograd
-   (bounded and not); kernel, plain, library and bound times;
+7. lifted kernels: K4 (``lifted_fwd``; f32 on 3xTF32 tensor cores), K5
+   (``lifted_bwd``) and K6 (``lifted_fwd_tri``) against their plain
+   PyTorch versions on the card, at the trainer's shape (N=512, d=128) in
+   f32 and bf16, unnormalised inputs for K4/K5, ragged N and d with a valid
+   mask and 64-bit labels, an f32 depth TMA needs padded (d=90), inputs
+   exact in TF32, rows with no valid negative, N=8192 and N=16384 with
+   d=128, K5 after both forwards and at d=1536 and 2048 (past its
+   accumulator's 1024 columns), and the gradient through
+   ``lifted_loss_fused`` against dense autograd (bounded and not); kernel,
+   plain, library and bound times, and K4's and K6's two launches apart;
 8. trainer: the port's batch-hard trainer, ConvRTSN at full width (3 TSN
    segments of 8x8x1536 resnet maps, n_C=20, emb_dim=128, class-balanced
    batch 512, event budget 1000, 3 sessions per batch, Adam eps=0.1) on a
@@ -90,7 +93,12 @@ BATCH_HARD = ("batch_hard_stats_idx", "batch_hard_stats", "batch_hard_tri_idx",
               "batch_hard_tri")
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+F32_OPS_PER_S = 67e12   # f32 outside the tensor cores: the epilogues
+# products per second by operand type: bf16 on the tensor cores; f32-grade
+# products at the 3xTF32 rate, three TF32 products each at 495 TFLOP/s, the
+# least time the card can take for them (the f32 K4 runs so).  Epilogues
+# stay at the f32 rate.
+PRODUCT_OPS_PER_S = {"bf16": 989e12, "f32": 495e12 / 3}
 # f32 epilogue operations per (row, column) pair: norm add, -2x fused
 # subtract, clamp, the positive and negative selects, the max and min
 # compares and the negative-count add
@@ -162,8 +170,8 @@ def device_ms(fn, reps=10, iters=5):
 
 def bound(n, d, precision, with_idx, triangular=False):
     """(bound_ms, bound_by): each input read once, each output written
-    once; the products at the operand type's peak and the epilogue at the
-    f32 peak.  The triangular walk (K3) needs the products of the upper
+    once; the products at the operand type's product rate and the epilogue
+    at the f32 peak.  The triangular walk (K3) needs the products of the upper
     triangle alone, n (n + 1) / 2 pairs, and both sides' epilogue: the same
     n^2 pair epilogues as the row walk."""
     esize = 2 if precision == "bf16" else 4
@@ -171,8 +179,8 @@ def bound(n, d, precision, with_idx, triangular=False):
     nbytes = n * d * esize + n * (4 * 3 + 8) + n * 4 * (5 if with_idx else 3)
     t_bytes = nbytes / HBM_BYTES_PER_S
     products = (n * (n + 1) if triangular else 2.0 * n * n) * d
-    t_ops = (products / PEAK_OPS_PER_S[precision]
-             + EPILOGUE_OPS * n * n / PEAK_OPS_PER_S["f32"])
+    t_ops = (products / PRODUCT_OPS_PER_S[precision]
+             + EPILOGUE_OPS * n * n / F32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -190,6 +198,10 @@ def make_case(n, d, kind, gen, n_classes=7, invalid_frac=0.0,
         # small integers: every product and sum is exact in f32 and bf16,
         # so any summation order gives bit-equal distances and ties
         emb = torch.randint(-3, 4, (n, d), generator=gen).float()
+    elif kind == "tf32":
+        # sixteenths of small integers: exact in TF32 (lo = 0), products
+        # and sums exact in f32, distances at most 18 at d=128
+        emb = torch.randint(-3, 4, (n, d), generator=gen).float() / 16
     else:
         centers = torch.randn(n_classes, d, generator=gen)
         emb = centers[labels] + 0.8 * torch.randn(n, d, generator=gen)
@@ -581,13 +593,15 @@ def mining_times():
 
 def sqdist_bound(n, m, d):
     """(bound_ms, bound_by, counts): the f32 inputs read once and the
-    [N, M] output written once, against the products and norms at the
-    f32 rate plus 4 epilogue operations per output (the norm add, the
-    fused -2x subtract, the clamp, the store's address)."""
+    [N, M] output written once, against the products at the 3xTF32 rate
+    plus the norms and 4 epilogue operations per output (the norm add, the
+    fused -2x subtract, the clamp, the store's address) at the f32 rate."""
     nbytes = 4 * (n * d + m * d + n * m)
-    ops = 2.0 * n * m * d + 2.0 * (n + m) * d + 4.0 * n * m
+    products = 2.0 * n * m * d
+    ops = products + 2.0 * (n + m) * d + 4.0 * n * m
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S["f32"]
+    t_ops = (products / PRODUCT_OPS_PER_S["f32"]
+             + (ops - products) / F32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes",
             {"bytes": nbytes, "flop": ops})
@@ -694,7 +708,7 @@ def lifted_counts(ops):
 def lifted_bound(kname, ops, precision, sfu):
     """(bound_ms, bound_by, counts): each input read once and each output
     written once at the HBM rate, against the products at the operand
-    type's peak plus the f32 epilogue at the f32 peak plus the
+    type's product rate plus the f32 epilogue at the f32 peak plus the
     exponentials and logs at the SFU rate."""
     n, d = ops.opd.shape
     esize = 2 if precision == "bf16" else 4
@@ -717,8 +731,8 @@ def lifted_bound(kname, ops, precision, sfu):
         pairs = n * n
         exps = 2 * (n_pos + n_neg)            # C_ij and C_ji
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = (products / PEAK_OPS_PER_S[precision]
-             + LIFTED_EPILOGUE_OPS[kname] * pairs / PEAK_OPS_PER_S["f32"]
+    t_ops = (products / PRODUCT_OPS_PER_S[precision]
+             + LIFTED_EPILOGUE_OPS[kname] * pairs / F32_OPS_PER_S
              + exps / sfu)
     counts = {"bytes": nbytes, "products_flop": products,
               "epilogue_ops": LIFTED_EPILOGUE_OPS[kname] * pairs,
@@ -821,9 +835,11 @@ def check_lifted(name, emb, labels, valid, precision, bounded=True):
     return ops, errs
 
 
-def time_lifted(name, ops, precision, sfu):
+def time_lifted(name, ops, precision, sfu,
+                kernels=("lifted_fwd", "lifted_fwd_tri", "lifted_bwd")):
     """Kernel, plain (in turns: plain, kernel, kernel, plain), library and
-    bound times of K4, K5 and K6 on these operands."""
+    bound times of the named lifted kernels (K4, K6, K5) on these
+    operands."""
     import torch
     n, d = ops.opd.shape
     opd = ops.opd
@@ -835,6 +851,8 @@ def time_lifted(name, ops, precision, sfu):
     del coef
     rows = {}
     for kname, (kernel, plain) in lifted_calls(ops).items():
+        if kname not in kernels:
+            continue
         p_a = device_ms(plain)
         k_a = device_ms(kernel)
         k_b = device_ms(kernel)
@@ -927,6 +945,27 @@ def k6_combine_cost(ops):
               "time in the profiler trace)", flush=True)
 
 
+def k4_combine_cost(ops):
+    """f32 K4's two launches apart (the 3xTF32 tile walk and the
+    ascending-order combine of its column ranges)."""
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        sm_count as device_sms)
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
+        fwd_split, lifted_fwd_kernel)
+    keys = ("lifted_fwd_tc", "lifted_fwd_combine")
+    per = pass_times(lambda: lifted_fwd_kernel(ops, MARGIN), keys)
+    n, d = ops.opd.shape
+    split = fwd_split(n, device_sms(ops.opd.device))
+    if per:
+        print(f"[lifted] K4 f32 at N={n} d={d} ({split} column ranges): "
+              f"tile walk {per[keys[0]]:.5f} ms, combine "
+              f"{per[keys[1]]:.5f} ms, both {per[keys[0]] + per[keys[1]]:.5f}"
+              " ms per call (torch.profiler device time)", flush=True)
+    else:
+        print(f"[lifted] K4 f32 at N={n} d={d}: launches not timed apart (no "
+              "device time in the profiler trace)", flush=True)
+
+
 def k3_combine_cost(ops):
     """K3's two launches apart (the tile walk and the ascending-order
     combine), with winners."""
@@ -969,12 +1008,25 @@ def lifted_kernel_phase(sfu):
             main_rows = time_lifted("slice-f32", ops, "f32", sfu)
             main_errs = errs
             k6_combine_cost(ops)
+            k4_combine_cost(ops)
     emb, labels, valid = make_case(512, 128, "float", gen)
     check_lifted("unnormalised-x3", emb * 3.0, labels, valid, "f32",
                  bounded=False)
+    # N=1000: not a multiple of K4's 64-row blocks and 64-column tiles
     check_lifted("ragged-valid-int64", *make_case(
         1000, 72, "float", gen, invalid_frac=0.1, label_offset=2 ** 40),
         "f32")
+    # f32 K4 at a depth TMA needs padded (90 -> 92), unnormalised, with
+    # invalid rows
+    emb, labels, valid = make_case(777, 90, "float", gen, invalid_frac=0.2,
+                                   label_offset=2 ** 36)
+    check_lifted("ragged-d90-unnormalised", emb * 3.0, labels, valid, "f32",
+                 bounded=False)
+    # exact in TF32 and f32: the distances carry no error, only the
+    # exponentials do
+    check_lifted("exact-tf32", *make_case(512, 128, "tf32", gen,
+                                          invalid_frac=0.1), "f32",
+                 bounded=False)
     check_lifted("ragged-valid-int64-bf16", *make_case(
         777, 100, "float", gen, invalid_frac=0.2, label_offset=2 ** 33),
         "bf16")
@@ -984,6 +1036,20 @@ def lifted_kernel_phase(sfu):
         8192, 128, "float", gen, n_classes=64), "f32")
     large_rows = time_lifted("large-d128", ops, "f32", sfu)
     k6_combine_cost(ops)
+    k4_combine_cost(ops)
+    del ops
+    torch.cuda.empty_cache()
+    ops, _ = check_lifted("large-n16384", *make_case(
+        16384, 128, "float", gen, n_classes=64), "f32", bounded=False)
+    time_lifted("large-n16384", ops, "f32", sfu, kernels=("lifted_fwd",))
+    k4_combine_cost(ops)
+    del ops
+    torch.cuda.empty_cache()
+    # K5 past the 1024 columns its accumulator holds, after K4
+    for d in (1536, 2048):
+        ops, _ = check_lifted(f"deep-d{d}", *make_case(
+            1000, d, "float", gen, invalid_frac=0.1), "f32", bounded=False)
+        time_lifted(f"deep-d{d}", ops, "f32", sfu, kernels=("lifted_bwd",))
     for bounded in (True, False):
         check_lifted_gradient(gen, bounded)
     return main_rows, main_errs, large_rows
@@ -1219,7 +1285,8 @@ def main():
           f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 print(f"[build] {name}: {line.strip()}")
 
     # K2 and K3 are held bit-equal to K1, so all carry K1's error

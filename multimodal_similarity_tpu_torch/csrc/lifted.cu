@@ -2,8 +2,9 @@
 // (sm_90a).
 //
 // Replaces the TPU kernels of the JAX package's ops/pallas/:
-//   lifted_fwd_kernel (K4)      -> lifted.py:85 _fwd_kernel
-//                                  (via _lifted_fwd_pallas :187)
+//   lifted_fwd_tc (K4, f32)     -> lifted.py:85 _fwd_kernel
+//   + lifted_fwd_combine           (via _lifted_fwd_pallas :187)
+//   lifted_fwd_kernel (K4, bf16)
 //   lifted_bwd_kernel (K5)      -> lifted.py:126 _bwd_kernel, both the
 //                                  straight and the transposed pass
 //                                  (via _lifted_bwd_pallas :227, called
@@ -24,16 +25,54 @@
 //   nc_i  = sum_j (same ? 0 : valid[j])
 // Labels are 64-bit integers with a separate valid flag: no float cast.
 //
-// K4 (general row forward).  One CTA owns BM anchor rows and loops over all
-// column tiles, as K1 does (csrc/batch_hard.cu); the [BM, d] x [d, 128]
-// tile product is f32 FMA from shared memory.  Each thread carries, for its
-// rows, the running (max, sum of exp) of both logsumexps over the columns
-// it owns: per tile it takes the max of its 4 values first, so a tile costs
-// 4 + 1 exponentials per row and lse, not 2 per element.  A warp-shuffle
-// merge of the 32 column lanes ends the row.  The running max starts at
-// -FLT_MAX, not -inf, so no merge ever forms inf - inf: a row with no valid
-// negative ends at max = -1e30 and sum = its column count, hence
-// cn = -1e30 + log(count) = -1e30 in f32, the TPU kernel's value.
+// K4, f32 (lifted_fwd_tc + lifted_fwd_combine): the products on the tensor
+// cores through 3xTF32 (csrc/wgmma_tf32.cuh says how): the caller splits
+// the operand into hi = tf32(x) and lo = x - hi, and every k8 step adds
+// hi lo + lo hi + hi hi into one f32 accumulator.  The dropped lo lo term
+// and the truncation of lo cost at most about 2^-21 of |e_i| |e_j| a
+// product, so the distances keep the 1e-4 parity with the JAX package
+// (plain TF32, about 2^-11, would not); the JAX kernel also runs this
+// product on its matrix unit (ops/pallas/lifted.py:62-63).  A CTA owns 64
+// rows and walks the 64-column tiles of one column range in ascending
+// order, in three roles (warp-specialised, as K3's tensor-core kernel): a
+// producer warp keeps TMA loads of the hi and lo tiles in flight; an MMA
+// warpgroup issues each tile's products and stores the tile to one of two
+// shared-memory buffers; two epilogue warpgroups, four threads a row and
+// 16 columns each, run the online logsumexp on it while the next tile's
+// products run.  Per tile each epilogue thread takes the max of its
+// columns' v_pos (and v_neg) first, then the sum of exp, and folds both
+// into a running (max, sum); a row's four threads merge at the end, in
+// ascending order.  Each column's norm, flag, penalty and label are loaded
+// a tile ahead and read from shared memory, and the epilogue has no
+// branches: a column past n enters at -inf, whose exp is 0 against a tile
+// max that starts at -FLT_MAX.  The running max starts at -FLT_MAX, not
+// -inf, so no merge forms inf - inf: a row with no valid negative ends at
+// max = -1e30 and sum = its column count, hence cn = -1e30 + log(count) =
+// -1e30 in f32, the TPU kernel's value.  The exponentials are the SFU's
+// (__expf, a few 1e-7 relative), exact at 0 and -inf.
+//   Column split.  The row walk alone gives few CTAs at small N (8 at
+// N = 512), so the columns are cut into S ranges: grid (row block, range).
+// Each CTA writes its rows' (pos max, pos sum, neg max, neg sum, count) to
+// partial[S][5][N], every entry exactly once (no clearing), and a second
+// launch merges ranges 0..S-1 in ascending order with lse_merge and takes
+// fp = m + log(max(s, 1e-30)).  No float atomics, no clusters: bit-identical
+// from run to run.  The wrapper picks S (ops/kernels/lifted.py fwd_split).
+//   Bound on an H100 (SXM, 700 W).  2 N^2 d products, three TF32 products
+// each at 495 TFLOP/s, plus about 14 f32 operations (67 TFLOP/s) and 2
+// exponentials (the SFU rate) a pair: N = 8192, d = 128 needs 0.104 ms of
+// products, 0.014 of epilogue and 0.016 of exp, 0.134 ms; N = 512 about
+// 0.5 us, where launch and load latency bound it.  On the card neither the
+// tensor cores nor the SFU bound it: the epilogue side alone takes about
+// twice the bound and the products with their loads (32 bytes of hi and lo
+// a pair from L2 at 64 x 64 tiles) about 1.7 times; the roles overlap the
+// two.  Simpler geometries measured slower (PERF.md, K4 findings).
+//
+// K4, bf16 (lifted_fwd_kernel): the first port's design.  One CTA owns BM
+// anchor rows and loops over all column tiles, as the f32 FMA batch-hard
+// kernel does; the [BM, d] x [d, 128] tile product is FMA from shared
+// memory; each thread carries, for its rows, the running (max, sum of exp)
+// of both logsumexps over its columns (4 a tile), merged over the 32 column
+// lanes by warp shuffles.
 //
 // K5 (recompute backward).  With C_ij = g_fp_i softmax^pos_ij pos_ij
 // - g_cn_i softmax^neg_ij neg_ij (softmaxes rebuilt from the saved fp, cn),
@@ -43,8 +82,11 @@
 // stats: the TPU's straight pass) and C_ji (column j's stats: the TPU's
 // transposed pass, which there took a second launch), stages their sum in
 // shared memory, and multiplies it by the column tile of E, streamed in
-// 32 x 128 slices, into a [BM, d] accumulator in shared memory.  One launch,
-// no atomics, each output row written by one CTA: deterministic.
+// 32 x 128 slices, into a [BM, d] accumulator in shared memory.  A depth
+// beyond 1024 is walked in chunks of 1024 columns, the accumulator's room:
+// each chunk recomputes the column tiles and C (the row sums of C are kept
+// from the first).  One launch, no atomics, each output row written by one
+// CTA: deterministic.
 //
 // K6 (bounded triangular forward, l2-normalised inputs: dist <= 4, so the
 // plain sums of exp cannot overflow and need no max tracking).  One CTA per
@@ -62,28 +104,32 @@
 // run to run.  B = 32 while the 64-row walk would leave SMs idle (N = 512:
 // 136 CTAs on 132 SMs), else B = 64; the wrapper chooses and allocates.
 //
-// Precision.  bf16 operands are products of bf16 values summed in f32; f32
-// operands are full-f32 FMA, no TF32.  Every epilogue (distance, masks,
-// exp, the coefficient matrix C and its product with E) runs in f32; the
-// TPU ran the distance epilogue in bf16 and rounded C to bf16 for its MXU.
+// Precision.  f32 K4 is 3xTF32 (above); K5, K6 and bf16 K4 form products of
+// the operand's values with f32 FMA (bf16 values are exact in f32).  Every
+// epilogue (distance, masks, exp, the coefficient matrix C and its product
+// with E) runs in f32; the TPU ran the distance epilogue in bf16 and
+// rounded C to bf16 for its MXU.
 //
-// Bound on an H100 (SXM, 700 W).  At the trainer's shape (N = 512, d = 128,
-// f32) K4 needs 2 N^2 d = 67 MFLOP and 2 N^2 exponentials, K6 half the
-// products and about N^2 / 2 exponentials, K5 4 N^2 d = 134 MFLOP and up to
-// 2 N^2 exponentials; inputs and outputs are a few hundred KB.  Each is a
-// few microseconds or less at the f32 FMA, SFU or HBM rate, so the calls
-// are bound by latency: a serial chain of tile loads, barriers and FMA steps
-// per CTA, and how many SMs the grid occupies.  The designs answer with
-// 8-row CTAs for K4 and K5 at small N (64 CTAs at N = 512) and 32-row tiles
-// for K6 (136 CTAs).  At N = 8192 the FMA work dominates; tensor cores
-// (mma.sync / wgmma) and TMA are later work.
+// K5 and K6 on an H100 (SXM, 700 W).  At the trainer's shape (N = 512,
+// d = 128, f32) K6 needs half of K4's products and about N^2 / 2
+// exponentials, K5 4 N^2 d = 134 MFLOP and up to 2 N^2 exponentials;
+// inputs and outputs are a few hundred KB.  Each is a few microseconds or
+// less at the f32 FMA, SFU or HBM rate, so they are bound by latency: a
+// serial chain of tile loads, barriers and FMA steps per CTA, and how many
+// SMs the grid occupies.  The designs answer with 8-row CTAs for K5 at
+// small N (64 CTAs at N = 512) and 32-row tiles for K6 (136 CTAs).  At
+// N = 8192 the FMA work dominates; their tensor-core redesigns are later
+// work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cfloat>
+#include <algorithm>
 #include <cmath>
+#include <cstdint>
 
 #include "tile.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -91,6 +137,9 @@ constexpr int BK = msim::TILE_BK;  // depth of one shared-memory slice
 constexpr int THREADS = 256;
 constexpr float POS_INF = 1e30f;
 constexpr float NEG_INF = -1e30f;
+// K5's widest shared-memory accumulator, in embedding columns: 128 KB at
+// 32 rows
+constexpr int BWD_CHUNK = 1024;
 
 using msim::tile_product;
 using msim::to_f32;
@@ -205,6 +254,238 @@ lifted_fwd_kernel(const T* __restrict__ emb, int n, int d,
   }
 }
 
+// ------------------------------------------- K4, f32 on the tensor cores ----
+
+// CTA roles of lifted_fwd_tc, warp-specialised: one MMA warpgroup issues
+// the products of the CTA's 64 rows by each 64-column tile and stores the
+// tile to shared memory; two epilogue warpgroups run the logsumexps on it
+// (four threads a row, 16 columns each), so the products of a tile run
+// beside the epilogue of the one before; one producer warp (a thread of
+// it) keeps the TMA loads in flight.  Shared memory after the ring: two
+// product tiles (pitch 68 floats: the epilogue's float4 row reads are
+// conflict-free), each tile's column data (float4 and label) in two
+// buffers, the states of a row's threads merged at the end, and the tiles'
+// full / empty mbarriers.
+constexpr int FWD_BN = 64;
+constexpr int FWD_EPI = 256;   // epilogue threads
+constexpr int FWD_THREADS = 128 + FWD_EPI + 32;
+constexpr int FWD_PITCH = FWD_BN + 4;
+constexpr int FWD_PER_ROW = FWD_EPI / msim::WG_BOX;   // threads a row
+constexpr int FWD_COLS = FWD_BN / FWD_PER_ROW;        // columns a thread
+using FwdRing = msim::Tf32Ring<msim::WG_BOX, FWD_BN, 4>;
+struct FwdSmem {
+  float tile[2][msim::WG_BOX][FWD_PITCH];
+  float4 info[2][FWD_BN];
+  long long lab[2][FWD_BN];
+  float part[FWD_PER_ROW - 1][5][msim::WG_BOX];
+  uint64_t tile_full[2], tile_empty[2];
+};
+constexpr int FWD_SMEM = FwdRing::BYTES + sizeof(FwdSmem) + 1024;
+static_assert(FWD_COLS % 4 == 0, "float4 reads of a thread's columns");
+
+// Column j's epilogue data, loaded by one epilogue thread before it waits
+// for the tile's products: (sq_pen, valid, (1 - valid) 1e30, 1) and the
+// label; zeros past n, where the last field marks the column out.
+__device__ __forceinline__ void load_fwd_col(
+    const float* __restrict__ sq_pen, const float* __restrict__ valid,
+    const long long* __restrict__ labels, int j, int n, float4& f,
+    long long& lab) {
+  if (j < n) {
+    const float v = valid[j];
+    f = make_float4(sq_pen[j], v, (1.f - v) * POS_INF, 1.f);
+    lab = labels[j];
+  } else {
+    f = make_float4(0.f, 0.f, 0.f, 0.f);
+    lab = 0;
+  }
+}
+
+// The running (max, sum) of both logsumexps of one row over one epilogue
+// thread's columns, and its negative count.
+struct FwdRow {
+  float pm = -FLT_MAX, ps = 0.f, qm = -FLT_MAX, qs = 0.f, nc = 0.f;
+
+  // one tile's FWD_COLS columns from c: the values and their maxima
+  // first, then the sums of exp, then one merge per logsumexp.  No
+  // branches: a column past n enters at -inf, whose exp is 0 against a
+  // max that starts at -FLT_MAX; a row past n is computed, never stored.
+  __device__ __forceinline__ void tile(const float (&prod)[FWD_COLS],
+                                       const float4* info,
+                                       const long long* lab, int c, int i,
+                                       int j0, float sqa, long long la,
+                                       float margin) {
+    float vp[FWD_COLS], vn[FWD_COLS];
+    float tp = -FLT_MAX, tq = -FLT_MAX;
+#pragma unroll
+    for (int e = 0; e < FWD_COLS; ++e) {
+      const float4 s = info[c + e];
+      const bool same = s.y > 0.f && la == lab[c + e];
+      // (sq[i] + sq_pen[j]) - 2 acc, one rounding: 2 acc is exact
+      const float dist = fmaxf(__fmaf_rn(-2.f, prod[e], sqa + s.x), 0.f);
+      const float p = ((same && i != j0 + e) ? dist : 0.f) - s.z;
+      const float q = same ? NEG_INF : margin - dist;
+      const bool jin = s.w > 0.f;
+      vp[e] = jin ? p : -INFINITY;
+      vn[e] = jin ? q : -INFINITY;
+      tp = fmaxf(tp, vp[e]);
+      tq = fmaxf(tq, vn[e]);
+      nc += same ? 0.f : s.y;
+    }
+    // exp(v - t) <= 1 by the SFU's ex2 (__expf): its error, a few 1e-7
+    // relative where a term counts, is far inside the 1e-4 parity; exp(0)
+    // is exactly 1 and exp(-inf) exactly 0, as the sentinels need
+    float sp = 0.f, sn = 0.f;
+#pragma unroll
+    for (int e = 0; e < FWD_COLS; ++e) {
+      sp += __expf(vp[e] - tp);
+      sn += __expf(vn[e] - tq);
+    }
+    lse_merge(pm, ps, tp, sp);
+    lse_merge(qm, qs, tq, sn);
+  }
+};
+
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+lifted_fwd_tc(const __grid_constant__ CUtensorMap map_hi,
+              const __grid_constant__ CUtensorMap map_lo, int n, int d,
+              int tiles_per_range, const float* __restrict__ sq,
+              const float* __restrict__ sq_pen,
+              const long long* __restrict__ labels,
+              const float* __restrict__ valid, float margin,
+              float* __restrict__ partial) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = msim::align_1024(smem_raw);
+  const FwdRing ring{msim::smem_u32(smem)};
+  FwdSmem& sh = *reinterpret_cast<FwdSmem*>(smem + FwdRing::BYTES);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      msim::mbar_init(msim::smem_u32(&sh.tile_full[b]), 128);
+      msim::mbar_init(msim::smem_u32(&sh.tile_empty[b]), FWD_EPI);
+    }
+    ring.init(128);   // ends with the barrier-init fence
+  }
+  __syncthreads();
+
+  const int k_slices = (d + msim::TF32_BK - 1) / msim::TF32_BK;
+  const int n_tiles = (n + FWD_BN - 1) / FWD_BN;
+  const int t_begin = blockIdx.y * tiles_per_range;
+  const int t_end = min(n_tiles, t_begin + tiles_per_range);
+  const int row0 = blockIdx.x * msim::WG_BOX;
+
+  if (threadIdx.x >= 128 + FWD_EPI) {   // the producer warp: one thread
+    if (threadIdx.x == 128 + FWD_EPI) {
+      int it = 0;
+      for (int t = t_begin; t < t_end; ++t)
+        ring.load(&map_hi, &map_lo, it, row0, t * FWD_BN, n, k_slices);
+    }
+    return;
+  }
+
+  if (threadIdx.x < 128) {
+    // ---- MMA warpgroup: each tile's products, stored to its buffer once
+    // the epilogue has released it (passes at once for the first two)
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int it = 0;
+    for (int t = t_begin, k = 0; t < t_end; ++t, ++k) {
+      float acc[FWD_BN / 2];
+      ring.product(acc, it, k_slices);
+      const int b = k & 1;
+      msim::mbar_wait(msim::smem_u32(&sh.tile_empty[b]), ((k >> 1) & 1) ^ 1);
+#pragma unroll
+      for (int g = 0; g < FWD_BN / 8; ++g)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              &sh.tile[b][16 * warp + (lane >> 2) + 8 * h]
+                      [8 * g + 2 * (lane & 3)]) =
+              make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+      msim::mbar_arrive(msim::smem_u32(&sh.tile_full[b]));
+    }
+    return;
+  }
+
+  // ---- epilogue warpgroups: row r over columns c.. c + 15 of every tile
+  const int e = threadIdx.x - 128;
+  const int r = e % msim::WG_BOX, c = (e / msim::WG_BOX) * FWD_COLS;
+  const int i = row0 + r;
+  const float sqa = i < n ? sq[i] : 0.f;
+  const long long la = i < n ? labels[i] : 0;
+  FwdRow row;
+  // column data one tile ahead, so its load latency hides behind a tile
+  float4 side;
+  long long side_lab;
+  if (e < FWD_BN)
+    load_fwd_col(sq_pen, valid, labels, t_begin * FWD_BN + e, n, side,
+                 side_lab);
+  for (int t = t_begin, k = 0; t < t_end; ++t, ++k) {
+    const int b = k & 1;
+    if (e < FWD_BN) {
+      sh.info[b][e] = side;
+      sh.lab[b][e] = side_lab;
+      if (t + 1 < t_end)
+        load_fwd_col(sq_pen, valid, labels, (t + 1) * FWD_BN + e, n, side,
+                     side_lab);
+    }
+    msim::mbar_wait(msim::smem_u32(&sh.tile_full[b]), (k >> 1) & 1);
+    float prod[FWD_COLS];
+#pragma unroll
+    for (int v = 0; v < FWD_COLS; v += 4)
+      *reinterpret_cast<float4*>(&prod[v]) =
+          *reinterpret_cast<const float4*>(&sh.tile[b][r][c + v]);
+    msim::mbar_arrive(msim::smem_u32(&sh.tile_empty[b]));
+    msim::bar_sync(1, FWD_EPI);   // this tile's column data is in place
+    row.tile(prod, sh.info[b], sh.lab[b], c, i, t * FWD_BN + c, sqa, la,
+             margin);
+  }
+
+  // merge each row's parts in ascending order; part 0 writes the range's
+  // entry
+  const int part = e / msim::WG_BOX;
+  if (part > 0) {
+    float* qv = &sh.part[part - 1][0][r];
+    qv[0] = row.pm;
+    qv[msim::WG_BOX] = row.ps;
+    qv[2 * msim::WG_BOX] = row.qm;
+    qv[3 * msim::WG_BOX] = row.qs;
+    qv[4 * msim::WG_BOX] = row.nc;
+  }
+  msim::bar_sync(1, FWD_EPI);
+  if (part > 0 || i >= n) return;
+  for (int pp = 0; pp < FWD_PER_ROW - 1; ++pp) {
+    const float* qv = &sh.part[pp][0][r];
+    lse_merge(row.pm, row.ps, qv[0], qv[msim::WG_BOX]);
+    lse_merge(row.qm, row.qs, qv[2 * msim::WG_BOX], qv[3 * msim::WG_BOX]);
+    row.nc += qv[4 * msim::WG_BOX];
+  }
+  float* p = partial + (size_t)blockIdx.y * 5 * n + i;
+  p[0] = row.pm;
+  p[n] = row.ps;
+  p[2 * (size_t)n] = row.qm;
+  p[3 * (size_t)n] = row.qs;
+  p[4 * (size_t)n] = row.nc;
+}
+
+// row i's stats from partial[0..S-1][.][i], ranges in ascending order
+__global__ void __launch_bounds__(THREADS)
+lifted_fwd_combine(const float* __restrict__ partial, int n, int ranges,
+                   float* __restrict__ fp_out, float* __restrict__ cn_out,
+                   float* __restrict__ nc_out) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  float pm = partial[i], ps = partial[n + i];
+  float qm = partial[2 * (size_t)n + i], qs = partial[3 * (size_t)n + i];
+  float nc = partial[4 * (size_t)n + i];
+  for (int r = 1; r < ranges; ++r) {
+    const float* p = partial + (size_t)r * 5 * n + i;
+    lse_merge(pm, ps, p[0], p[n]);
+    lse_merge(qm, qs, p[2 * (size_t)n], p[3 * (size_t)n]);
+    nc += p[4 * (size_t)n];
+  }
+  fp_out[i] = pm + logf(fmaxf(ps, 1e-30f));
+  cn_out[i] = qm + logf(fmaxf(qs, 1e-30f));
+  nc_out[i] = nc;
+}
+
 // ---------------------------------------------------------------- K5 ----
 
 // C of one ordered pair: conceptual row r (its stats), conceptual column c
@@ -223,7 +504,7 @@ __device__ __forceinline__ float coef(float sq_r, float sqpen_c, float s,
 
 template <typename T, int TM>
 __global__ void __launch_bounds__(THREADS)
-lifted_bwd_kernel(const T* __restrict__ emb, int n, int d, int d_pad,
+lifted_bwd_kernel(const T* __restrict__ emb, int n, int d, int kc,
                   const float* __restrict__ sq,
                   const float* __restrict__ sq_pen,
                   const long long* __restrict__ labels,
@@ -239,14 +520,12 @@ lifted_bwd_kernel(const T* __restrict__ emb, int n, int d, int d_pad,
   __shared__ float As[BK][BM + 1];
   __shared__ float Bs[BK][BN + 1];            // also the E slices
   __shared__ float Cs[BM][BN + 1];
-  extern __shared__ float G[];                // [BM][d_pad]: sum_j C e_j
+  extern __shared__ float G[];                // [BM][kc]: sum_j C e_j
 
   const int tid = threadIdx.x;
   const int tx = tid % CX;
   const int ty = tid / CX;
   const int row0 = blockIdx.x * BM;
-
-  for (int e = tid; e < BM * d_pad; e += THREADS) G[e] = 0.f;
 
   float sq_i[TM], sqp_i[TM], v_i[TM], fp_i[TM], cn_i[TM], gfp_i[TM],
       gcn_i[TM], rowsum[TM];
@@ -266,92 +545,108 @@ lifted_bwd_kernel(const T* __restrict__ emb, int n, int d, int d_pad,
     rowsum[m] = 0.f;
   }
 
-  for (int col0 = 0; col0 < n; col0 += BN) {
-    float acc[TM][TN];
-    tile_product<T, RY, CX, TM, TN>(emb, n, emb, n, d, row0, col0, As,
-                                    Bs, acc);
+  // the embedding columns [k0, k0 + kc) of the gradient per pass: one pass
+  // when d fits the accumulator (kc is d rounded up to 128, at most 1024)
+  for (int k0 = 0; k0 < d; k0 += kc) {
+    const int k1 = min(d, k0 + kc);
+    if (k0 > 0) __syncthreads();   // the last chunk's G is read out
+    for (int e = tid; e < BM * kc; e += THREADS) G[e] = 0.f;
 
-    // C_ij + C_ji for this thread's pairs, staged in Cs
+    for (int col0 = 0; col0 < n; col0 += BN) {
+      float acc[TM][TN];
+      tile_product<T, RY, CX, TM, TN>(emb, n, emb, n, d, row0, col0, As,
+                                      Bs, acc);
+
+      // C_ij + C_ji for this thread's pairs, staged in Cs
 #pragma unroll
-    for (int q = 0; q < TN; ++q) {
-      const int j = col0 + tx + CX * q;
-      const bool jin = j < n;
-      const float sq_j = jin ? sq[j] : 0.f;
-      const float sqp_j = jin ? sq_pen[j] : 0.f;
-      const float v_j = jin ? valid[j] : 0.f;
-      const float fp_j = jin ? fp[j] : 0.f;
-      const float cn_j = jin ? cn[j] : 0.f;
-      const float gfp_j = jin ? gfp[j] : 0.f;
-      const float gcn_j = jin ? gcn[j] : 0.f;
-      const long long lb = jin ? labels[j] : 0;
+      for (int q = 0; q < TN; ++q) {
+        const int j = col0 + tx + CX * q;
+        const bool jin = j < n;
+        const float sq_j = jin ? sq[j] : 0.f;
+        const float sqp_j = jin ? sq_pen[j] : 0.f;
+        const float v_j = jin ? valid[j] : 0.f;
+        const float fp_j = jin ? fp[j] : 0.f;
+        const float cn_j = jin ? cn[j] : 0.f;
+        const float gfp_j = jin ? gfp[j] : 0.f;
+        const float gcn_j = jin ? gcn[j] : 0.f;
+        const long long lb = jin ? labels[j] : 0;
 #pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        const int i = row0 + ty * TM + m;
-        float c = 0.f;
-        if (jin && i < n) {
-          const bool self = i == j;
-          // straight: row i over column j
-          c = coef(sq_i[m], sqp_j, acc[m][q], v_j > 0.f && la[m] == lb,
-                   self, v_j, fp_i[m], cn_i[m], gfp_i[m], gcn_i[m], margin);
-          // transposed: row j over column i
-          c += coef(sq_j, sqp_i[m], acc[m][q], v_i[m] > 0.f && lb == la[m],
-                    self, v_i[m], fp_j, cn_j, gfp_j, gcn_j, margin);
+        for (int m = 0; m < TM; ++m) {
+          const int i = row0 + ty * TM + m;
+          float c = 0.f;
+          if (jin && i < n) {
+            const bool self = i == j;
+            // straight: row i over column j
+            c = coef(sq_i[m], sqp_j, acc[m][q], v_j > 0.f && la[m] == lb,
+                     self, v_j, fp_i[m], cn_i[m], gfp_i[m], gcn_i[m],
+                     margin);
+            // transposed: row j over column i
+            c += coef(sq_j, sqp_i[m], acc[m][q],
+                      v_i[m] > 0.f && lb == la[m], self, v_i[m], fp_j, cn_j,
+                      gfp_j, gcn_j, margin);
+          }
+          if (k0 == 0) rowsum[m] += c;
+          Cs[ty * TM + m][tx + CX * q] = c;
         }
-        rowsum[m] += c;
-        Cs[ty * TM + m][tx + CX * q] = c;
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // G[rows] += Cs @ E[col0 : col0 + BN], 128 embedding columns at a time
-    for (int c0 = 0; c0 < d; c0 += 128) {
-      float g[TM][4];
+      // G[rows] += Cs @ E[col0 : col0 + BN], 128 embedding columns at a
+      // time
+      for (int c0 = k0; c0 < k1; c0 += 128) {
+        float g[TM][4];
 #pragma unroll
-      for (int m = 0; m < TM; ++m)
+        for (int m = 0; m < TM; ++m)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) g[m][q] = 0.f;
-      for (int j0 = 0; j0 < BN; j0 += BK) {
-        for (int e = tid; e < BK * 128; e += THREADS) {
-          const int jj = e / 128, kk = e % 128;
-          const int gj = col0 + j0 + jj, gk = c0 + kk;
-          Bs[jj][kk] = (gj < n && gk < d)
-                           ? to_f32(emb[(size_t)gj * d + gk]) : 0.f;
-        }
-        __syncthreads();
+          for (int q = 0; q < 4; ++q) g[m][q] = 0.f;
+        for (int j0 = 0; j0 < BN; j0 += BK) {
+          for (int e = tid; e < BK * 128; e += THREADS) {
+            const int jj = e / 128, kk = e % 128;
+            const int gj = col0 + j0 + jj, gk = c0 + kk;
+            Bs[jj][kk] = (gj < n && gk < d)
+                             ? to_f32(emb[(size_t)gj * d + gk]) : 0.f;
+          }
+          __syncthreads();
 #pragma unroll 8
-        for (int jj = 0; jj < BK; ++jj) {
-          float cv[TM], ev[4];
+          for (int jj = 0; jj < BK; ++jj) {
+            float cv[TM], ev[4];
 #pragma unroll
-          for (int m = 0; m < TM; ++m) cv[m] = Cs[ty * TM + m][j0 + jj];
+            for (int m = 0; m < TM; ++m) cv[m] = Cs[ty * TM + m][j0 + jj];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) ev[q] = Bs[jj][tx + 32 * q];
+            for (int q = 0; q < 4; ++q) ev[q] = Bs[jj][tx + 32 * q];
 #pragma unroll
-          for (int m = 0; m < TM; ++m)
+            for (int m = 0; m < TM; ++m)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) g[m][q] = fmaf(cv[m], ev[q], g[m][q]);
+              for (int q = 0; q < 4; ++q)
+                g[m][q] = fmaf(cv[m], ev[q], g[m][q]);
+          }
+          __syncthreads();
         }
-        __syncthreads();
+        // each G element belongs to one thread for the whole pass
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            G[(ty * TM + m) * kc + c0 - k0 + tx + 32 * q] += g[m][q];
       }
-      // each G element belongs to one thread for the whole kernel
+    }
+
+    if (k0 == 0) {
 #pragma unroll
       for (int m = 0; m < TM; ++m)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          G[(ty * TM + m) * d_pad + c0 + tx + 32 * q] += g[m][q];
+        for (int off = 16; off > 0; off >>= 1)
+          rowsum[m] += __shfl_xor_sync(0xffffffffu, rowsum[m], off);
     }
-  }
-
 #pragma unroll
-  for (int m = 0; m < TM; ++m) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      rowsum[m] += __shfl_xor_sync(0xffffffffu, rowsum[m], off);
-    const int i = row0 + ty * TM + m;
-    if (i >= n) continue;
-    for (int k = tx; k < d; k += 32)
-      grad[(size_t)i * d + k] =
-          2.f * (rowsum[m] * to_f32(emb[(size_t)i * d + k])
-                 - G[(ty * TM + m) * d_pad + k]);
+    for (int m = 0; m < TM; ++m) {
+      const int i = row0 + ty * TM + m;
+      if (i >= n) continue;
+      for (int k = k0 + tx; k < k1; k += 32)
+        grad[(size_t)i * d + k] =
+            2.f * (rowsum[m] * to_f32(emb[(size_t)i * d + k])
+                   - G[(ty * TM + m) * kc + k - k0]);
+    }
   }
 }
 
@@ -510,15 +805,40 @@ int launch_bwd(const void* emb, int n, int d, const float* sq,
                const float* gfp, const float* gcn, float margin, float* grad,
                cudaStream_t s) {
   constexpr int BM = 8 * TM;
-  const int d_pad = (d + 127) / 128 * 128;
-  const size_t dyn = (size_t)BM * d_pad * sizeof(float);
+  // the accumulator's width: d rounded up to 128, at most BWD_CHUNK
+  const int kc = std::min((d + 127) / 128 * 128, BWD_CHUNK);
+  const size_t dyn = (size_t)BM * kc * sizeof(float);
   const cudaError_t rc = cudaFuncSetAttribute(
       lifted_bwd_kernel<T, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dyn);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   lifted_bwd_kernel<T, TM><<<(n + BM - 1) / BM, THREADS, dyn, s>>>(
-      static_cast<const T*>(emb), n, d, d_pad, sq, sq_pen, labels, valid,
-      fp, cn, gfp, gcn, margin, grad);
+      static_cast<const T*>(emb), n, d, kc, sq, sq_pen, labels, valid, fp,
+      cn, gfp, gcn, margin, grad);
+  return 0;
+}
+
+int launch_fwd_tc(const float* hi, const float* lo, int n, int d, int split,
+                  const float* sq, const float* sq_pen,
+                  const long long* labels, const float* valid, float margin,
+                  float* partial, float* fp, float* cn, float* nc,
+                  cudaStream_t s) {
+  CUtensorMap map_hi, map_lo;
+  int rc = msim::make_tensor_map_f32(&map_hi, hi, n, d);
+  if (rc != 0) return rc;
+  rc = msim::make_tensor_map_f32(&map_lo, lo, n, d);
+  if (rc != 0) return rc;
+  cudaFuncSetAttribute(lifted_fwd_tc,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+  // `split` ranges of whole tiles, none of them empty
+  const int n_tiles = (n + FWD_BN - 1) / FWD_BN;
+  const int per = (n_tiles + split - 1) / split;
+  const int ranges = (n_tiles + per - 1) / per;
+  const dim3 grid((n + msim::WG_BOX - 1) / msim::WG_BOX, ranges);
+  lifted_fwd_tc<<<grid, FWD_THREADS, FWD_SMEM, s>>>(
+      map_hi, map_lo, n, d, per, sq, sq_pen, labels, valid, margin, partial);
+  lifted_fwd_combine<<<(n + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      partial, n, ranges, fp, cn, nc);
   return 0;
 }
 
@@ -544,35 +864,49 @@ void launch_tri(const void* emb, int n, int d, const float* sq,
 // launches on `stream` without synchronising and returns
 // cudaGetLastError() (or the error of the launch set-up).
 
-// K4: fp, cn, nc [n] f32.
-extern "C" int lifted_fwd(const void* emb, int emb_is_bf16, int n, int d,
-                          const float* sq, const float* sq_pen,
-                          const long long* labels, const float* valid,
-                          float margin, float* fp, float* cn, float* nc,
-                          void* stream) {
+// K4 for a bf16 emb [n, d] (an f32 one takes lifted_fwd_tf32): fp, cn, nc
+// [n] f32.
+extern "C" int lifted_fwd(const void* emb, int n, int d, const float* sq,
+                          const float* sq_pen, const long long* labels,
+                          const float* valid, float margin, float* fp,
+                          float* cn, float* nc, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = wide_rows(n);
-  if (emb_is_bf16) {
-    if (wide)
-      launch_fwd<__nv_bfloat16, 4>(emb, n, d, sq, sq_pen, labels, valid,
-                                   margin, fp, cn, nc, s);
-    else
-      launch_fwd<__nv_bfloat16, 1>(emb, n, d, sq, sq_pen, labels, valid,
-                                   margin, fp, cn, nc, s);
-  } else {
-    if (wide)
-      launch_fwd<float, 4>(emb, n, d, sq, sq_pen, labels, valid, margin, fp,
-                           cn, nc, s);
-    else
-      launch_fwd<float, 1>(emb, n, d, sq, sq_pen, labels, valid, margin, fp,
-                           cn, nc, s);
-  }
+  if (wide_rows(n))
+    launch_fwd<__nv_bfloat16, 4>(emb, n, d, sq, sq_pen, labels, valid,
+                                 margin, fp, cn, nc, s);
+  else
+    launch_fwd<__nv_bfloat16, 1>(emb, n, d, sq, sq_pen, labels, valid,
+                                 margin, fp, cn, nc, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: grad [n, d] f32 = the straight plus the transposed pass.  d <= 1024
-// (the [rows, d] accumulator lives in shared memory).
+// K4 for an f32 emb on the tensor cores: hi and lo [n, d] f32, the TF32
+// split of emb (d a multiple of 4, bases 16-byte aligned); the column tiles
+// cut into `split` ranges through `partial`, at least split * 5 * n floats.
+// Two launches: the tile walk, then the ascending-order combine.  Returns
+// as lifted_fwd, or msim::ENCODE_ERROR (+ the CUresult) when a tensor map
+// cannot be built.
+extern "C" int lifted_fwd_tf32(const float* hi, const float* lo, int n, int d,
+                               int split, const float* sq,
+                               const float* sq_pen, const long long* labels,
+                               const float* valid, float margin,
+                               float* partial, float* fp, float* cn,
+                               float* nc, void* stream) {
+  if (n <= 0) return 0;
+  if (d <= 0 || d % 4 != 0 || split < 1 ||
+      reinterpret_cast<uintptr_t>(hi) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(lo) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = launch_fwd_tc(hi, lo, n, d, split, sq, sq_pen, labels,
+                               valid, margin, partial, fp, cn, nc,
+                               static_cast<cudaStream_t>(stream));
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: grad [n, d] f32 = the straight plus the transposed pass, any d (the
+// depth is walked in chunks of BWD_CHUNK columns beyond that).
 extern "C" int lifted_bwd(const void* emb, int emb_is_bf16, int n, int d,
                           const float* sq, const float* sq_pen,
                           const long long* labels, const float* valid,

@@ -13,18 +13,38 @@ without ever materialising the N x N matrix in device memory.
 
 Kernels (CUDA C++, ``csrc/lifted.cu``):
 
-* ``lifted_fwd`` (K4) replaces ``_fwd_kernel``: the general row forward,
-  online logsumexp (running max and sum of exp);
+* ``lifted_fwd`` (K4) replaces ``_fwd_kernel`` (via ``_lifted_fwd_pallas``):
+  the general row forward, online logsumexp (running max and sum of exp).
+  An f32 operand runs its products on the tensor cores through 3xTF32
+  (``lifted_fwd_tc`` on ``csrc/wgmma_tf32.cuh``): :func:`tf32_split` cuts
+  the operand, padded to a depth that is a multiple of 4 for TMA
+  (:func:`pad_depth`, zero columns change no product), into hi = x
+  rounded to TF32 and lo = x - hi, two extra [N, d] f32 buffers made per
+  call (fresh allocations, so 16-byte aligned as TMA needs); each product
+  is hi lo + lo hi + hi hi summed in f32, within about 2^-21 of
+  |e_i| |e_j| of the exact one, which keeps the 1e-4 f32 parity (plain
+  TF32, about 2^-11, would not).  A CTA of 64 rows runs in three roles
+  (TMA producer, MMA warpgroup, two epilogue warpgroups on the product
+  tiles in shared memory).  The columns are cut into the ranges
+  :func:`fwd_split` picks, each CTA writes its rows' (max, sum) pairs and
+  negative count per range to a [S, 5, N] partials buffer allocated here,
+  and a second launch merges the ranges in ascending order: no atomics,
+  bit-identical from run to run.
+  Its bound on an H100: 2 N^2 d products at three TF32 products each
+  (495 TFLOP/s), 14 f32 operations and 2 exponentials a pair (0.134 ms at
+  N = 8192, d = 128).  A bf16 operand keeps the first port's FMA row walk
+  (``lifted_fwd_kernel``);
 * ``lifted_bwd`` (K5) replaces ``_bwd_kernel``: the recompute VJP.  The TPU
   ran it twice, a straight and a transposed pass; here one launch computes
-  both, so a backward is one K5 launch;
+  both, so a backward is one K5 launch.  Any d: a depth past 1024 is walked
+  in chunks of 1024 columns;
 * ``lifted_fwd_tri`` (K6, ``ops/kernels/lifted_tri.py``) replaces the
   bounded triangular forward, taken with ``bounded=True``.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes the plain PyTorch version of the same function
 (:func:`lifted_fwd_plain`, :func:`lifted_bwd_plain`).  ``LAUNCHES`` counts
-kernel launches only.
+kernel launches only: one per wrapper call, K4's two launches included.
 
 Semantics kept from the TPU kernels, including their sentinels: an invalid
 column enters v_pos at -1e30 and v_neg at margin - (|e|^2 + 1e30), so a row
@@ -41,7 +61,8 @@ the distance epilogue in bf16 and fed C to the MXU in bf16.  The port's bf16
 stats therefore differ from the JAX package's by up to bf16 rounding of the
 distances; the tests hold bf16 to f32 within 5e-2.  With ``precision="f32"``
 (the default, and the trainer's) both are f32 throughout and agree to f32
-summation-order error (1e-4 in the tests).
+summation-order error (1e-4 in the tests); ``chip_smoke.py`` holds K4's
+3xTF32 products on the card to its plain version at that tolerance.
 
 The gradient, with C_ij = g_fp_i softmax^pos_ij pos_ij
 - g_cn_i softmax^neg_ij neg_ij:  grad_i = 2 sum_j (C_ij + C_ji) (e_i - e_j).
@@ -56,21 +77,27 @@ import torch
 
 from multimodal_similarity_tpu_torch.ops.kernels._build import LAUNCHES, bind
 from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
-    POS_INF, Operands, check_operands, on_cpu, prep_operands)
+    POS_INF, Operands, check_operands, on_cpu, pad_depth, prep_operands,
+    sm_count)
 from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
     lifted_fwd_tri)
 
 NEG_INF = -1e30
 
 LAUNCHES.update(lifted_fwd=0, lifted_bwd=0)
-_FWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+_FWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                  + [ctypes.c_void_p] * 4 + [ctypes.c_float]
                  + [ctypes.c_void_p] * 4)
+_TF32_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 4 + [ctypes.c_float]
+                  + [ctypes.c_void_p] * 5)
 _BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
                  + [ctypes.c_void_p] * 8 + [ctypes.c_float]
                  + [ctypes.c_void_p] * 2)
-# the backward keeps a [rows, d] accumulator in shared memory
-MAX_BWD_DIM = 1024
+# the bits an f32 keeps in TF32: sign, exponent and the top 10 mantissa
+# bits (0xFFFFE000 as an int32); half the step of the last one
+_TF32_MASK = -(1 << 13)
+_TF32_HALF = 1 << 12
 
 
 def _dist(ops: Operands) -> torch.Tensor:
@@ -136,20 +163,51 @@ def lifted_bwd_plain(ops: Operands, fp, cn, g_fp, g_cn,
     return 2.0 * (c.sum(dim=1)[:, None] * e - c @ e)
 
 
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of an f32 tensor: hi = x rounded to the nearest TF32 value
+    (half a TF32 step added to the magnitude, then the low 13 mantissa bits
+    cleared) and lo = x - hi, exact in f32; so hi + lo == x bit for bit and
+    |lo| <= 2^-11 |x|."""
+    hi = ((x.view(torch.int32) + _TF32_HALF) & _TF32_MASK).view(torch.float32)
+    return hi, x - hi
+
+
+def fwd_split(n: int, sms: int) -> int:
+    """Column ranges of the f32 K4 for N rows on a card with ``sms`` SMs
+    (one CTA an SM): its 64-row blocks times the ranges come close to the
+    SM count without passing it; 1 where the row blocks alone fill the
+    card; reduced so that no range is empty."""
+    tiles = -(-n // 64)
+    split = max(1, min(tiles, sms // tiles))
+    per = -(-tiles // split)
+    return -(-tiles // per)
+
+
 def lifted_fwd_kernel(ops: Operands, margin: float):
-    """Launch K4 on the operands' CUDA device, on the current stream.  Same
-    returns as :func:`lifted_fwd_plain`."""
+    """Launch K4 on the operands' CUDA device, on the current stream: the
+    3xTF32 tile walk and its combine for an f32 operand, the FMA row walk
+    for a bf16 one.  Same returns as :func:`lifted_fwd_plain`."""
     opd = ops.opd
     n, d = check_operands(ops, "lifted_fwd_kernel")
-    fn = bind("lifted", "lifted_fwd", _FWD_ARGTYPES)
     fp, cn, nc = (torch.empty(n, dtype=torch.float32, device=opd.device)
                   for _ in range(3))
     with torch.cuda.device(opd.device):
-        rc = fn(opd.data_ptr(), int(opd.dtype == torch.bfloat16), n, d,
-                ops.sq.data_ptr(), ops.sq_pen.data_ptr(),
-                ops.labels.data_ptr(), ops.valid.data_ptr(), float(margin),
-                fp.data_ptr(), cn.data_ptr(), nc.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        side = (ops.sq.data_ptr(), ops.sq_pen.data_ptr(),
+                ops.labels.data_ptr(), ops.valid.data_ptr(), float(margin))
+        if opd.dtype == torch.bfloat16:
+            fn = bind("lifted", "lifted_fwd", _FWD_ARGTYPES)
+            rc = fn(opd.data_ptr(), n, d, *side, fp.data_ptr(),
+                    cn.data_ptr(), nc.data_ptr(), stream)
+        else:
+            hi, lo = tf32_split(pad_depth(opd, 4))
+            split = fwd_split(n, sm_count(opd.device))
+            partial = torch.empty(split * 5 * n, dtype=torch.float32,
+                                  device=opd.device)
+            fn = bind("lifted", "lifted_fwd_tf32", _TF32_ARGTYPES)
+            rc = fn(hi.data_ptr(), lo.data_ptr(), n, hi.shape[1], split,
+                    *side, partial.data_ptr(), fp.data_ptr(),
+                    cn.data_ptr(), nc.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"lifted_fwd launch failed: CUDA error {rc}")
     LAUNCHES["lifted_fwd"] += 1
@@ -172,9 +230,6 @@ def lifted_bwd_kernel(ops: Operands, fp, cn, g_fp, g_cn,
     return as :func:`lifted_bwd_plain`."""
     opd = ops.opd
     n, d = check_operands(ops, "lifted_bwd_kernel")
-    if d > MAX_BWD_DIM:
-        raise ValueError(f"lifted_bwd_kernel takes d <= {MAX_BWD_DIM}, got "
-                         f"{d}")
     fp, cn, g_fp, g_cn = _row_stats(n, opd.device, fp, cn, g_fp, g_cn)
     fn = bind("lifted", "lifted_bwd", _BWD_ARGTYPES)
     grad = torch.empty(n, d, dtype=torch.float32, device=opd.device)

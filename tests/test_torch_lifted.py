@@ -5,6 +5,11 @@ inputs.  On a CPU tensor the port runs its plain PyTorch versions; the CUDA
 kernels themselves are checked against those versions on the card by
 chip_smoke.py.
 
+The f32 row forward runs its products on the card's tensor cores through
+3xTF32; here its split (``tf32_split``), a 3xTF32 model of its products and
+a model of its column split and combine are held to the JAX kernel and to
+the plain version.
+
 Tolerances: f32 stats and losses 1e-4 (summation order of the distance
 products and of the exponential sums differs between XLA and PyTorch);
 gradients rtol 1e-3 / atol 1e-5 as the JAX package's own kernel tests; bf16
@@ -24,9 +29,10 @@ from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
 from multimodal_similarity_tpu_torch.ops.kernels import (
     LAUNCHES, fused_lifted_stats, lifted_loss_fused, reset_launch_counts)
 from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
-    Operands, prep_operands)
+    POS_INF, Operands, pad_depth, prep_operands)
 from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
-    lifted_bwd, lifted_fwd)
+    NEG_INF, _lse, _masks, fwd_split, lifted_bwd, lifted_bwd_plain,
+    lifted_fwd, lifted_fwd_plain, tf32_split)
 from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
     lifted_fwd_tri, tri_block)
 from multimodal_similarity_tpu_torch.ops.losses import lifted_loss
@@ -269,3 +275,211 @@ def test_dispatch_by_device():
                                         (1024, 132, 64), (8192, 132, 64)])
 def test_triangular_tile_choice(n, sms, want):
     assert tri_block(n, sms) == want
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x with its low 13 mantissa bits cleared: what the tensor core reads
+    of an f32 operand in TF32."""
+    return (x.view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+@pytest.mark.parametrize("case", ["random", "zeros", "negative", "huge"])
+def test_tf32_split(rng, case):
+    """hi + lo == x bit for bit, hi is a TF32 value (low 13 bits zero), the
+    one nearest x (|lo| <= 2^-11 |x|, within 2^-10 as for truncation), for
+    zeros, negatives and values at the 1e30 scale of the penalised
+    norms."""
+    x = rng.randn(257).astype(np.float32)
+    if case == "zeros":
+        x[::2] = 0.0
+        x[1::4] = -0.0
+    elif case == "negative":
+        x = -np.abs(x) - 1e-3
+    elif case == "huge":
+        x = (x * 1e30).astype(np.float32)
+    x = _t(x)
+    hi, lo = tf32_split(x)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert torch.equal(hi + lo, x)
+    assert not (hi.view(torch.int32) & ((1 << 13) - 1)).any()
+    assert bool((lo.abs() <= x.abs() * 2.0 ** -11).all())
+    assert bool((lo.abs() <= (x - _tf32(x)).abs()).all())
+    assert torch.equal(torch.signbit(hi[hi != 0]), torch.signbit(x[hi != 0]))
+
+
+def _stats_from_inner(ops: Operands, inner: torch.Tensor, margin: float):
+    """K4's statistics with the given inner products in place of the
+    exact ones: lifted_fwd_plain's formulas, sentinels and f32 epilogue."""
+    dist = torch.clamp((ops.sq[:, None] + ops.sq_pen[None, :]) - 2.0 * inner,
+                       min=0.0)
+    same, pos = _masks(ops)
+    v_pos = torch.where(pos, dist, torch.zeros_like(dist)) \
+        - (1.0 - ops.valid)[None, :] * POS_INF
+    v_neg = torch.where(same, torch.full_like(dist, NEG_INF), margin - dist)
+    nc = torch.where(same, torch.zeros_like(dist), ops.valid[None, :]).sum(1)
+    return _lse(v_pos), _lse(v_neg), nc
+
+
+def _no_negative_case(rng):
+    emb = rng.randn(20, 8).astype(np.float32)
+    labels = np.repeat([1, 2], 10)
+    return emb, labels, (labels == 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["clustered", "unnormalised_x3",
+                                  "no_valid_negative"])
+def test_3xtf32_products_keep_jax_parity(rng, case):
+    """The card's f32 K4 forms <e_i, e_j> as hi.hi + hi.lo + lo.hi with lo
+    read as TF32 (csrc/wgmma_tf32.cuh).  Modelled here, in float64 and
+    rounded to f32, those products give stats within 1e-4 of the JAX
+    package's K4 (interpret mode): the parity claim of the 3xTF32 design,
+    shown without the card.  Plain TF32 (hi.hi alone) is further off."""
+    valid = None
+    if case == "no_valid_negative":
+        emb, labels, valid = _no_negative_case(rng)
+    else:
+        emb, labels = _clustered(rng)
+        if case == "unnormalised_x3":
+            emb = emb * 3.0
+    valid_t = _t(valid) if valid is not None else torch.ones(len(labels))
+    ops = prep_operands(_t(emb), _t(labels), valid_t, "f32")
+    hi, lo = tf32_split(ops.opd)
+    hi, lo = hi.double(), _tf32(lo).double()
+    inner = (hi @ lo.T + lo @ hi.T + hi @ hi.T).float()
+    fp, cn, nc = _stats_from_inner(ops, inner, MARGIN)
+    jfp, jcn, jnc = jax_fused_lifted(
+        jnp.asarray(emb), jnp.asarray(labels),
+        None if valid is None else jnp.asarray(valid), MARGIN, 16, "f32",
+        False)
+    np.testing.assert_array_equal(nc.numpy(), np.asarray(jnc))
+    _close(fp, jfp)
+    np.testing.assert_allclose(cn.numpy(), np.asarray(jcn), rtol=1e-5,
+                               atol=1e-4)
+    if case == "no_valid_negative":
+        assert (cn[:10] == np.float32(-1e30)).all()
+    # the split matters: TF32 alone moves the distances by about 2^-11
+    exact = ops.opd.double() @ ops.opd.double().T
+    err3 = float((inner.double() - exact).abs().max())
+    err1 = float((hi @ hi.T - exact).abs().max())
+    assert err3 * 100 < err1
+
+
+def _split_model(ops: Operands, margin: float, split: int, block: int = 64):
+    """The f32 K4's column split in plain PyTorch: per range of whole
+    `block`-column tiles, each row's (max, sum of exp) of v_pos and v_neg
+    (maxima from -FLT_MAX) and negative count; ranges merged in ascending
+    order with lse_merge; fp = m + log(max(s, 1e-30))."""
+    n = ops.sq.shape[0]
+    dist = torch.clamp((ops.sq[:, None] + ops.sq_pen[None, :])
+                       - 2.0 * (ops.opd @ ops.opd.T), min=0.0)
+    same, pos = _masks(ops)
+    v_pos = torch.where(pos, dist, torch.zeros_like(dist)) \
+        - (1.0 - ops.valid)[None, :] * POS_INF
+    v_neg = torch.where(same, torch.full_like(dist, NEG_INF), margin - dist)
+    negs = torch.where(same, torch.zeros_like(dist), ops.valid[None, :])
+    tiles = -(-n // block)
+    per = -(-tiles // split)
+    lowest = torch.finfo(torch.float32).min
+    state = None
+    for c0 in range(0, tiles * block, per * block):
+        cols = slice(c0, min(n, c0 + per * block))
+        part = []
+        for v in (v_pos, v_neg):
+            m = torch.clamp(v[:, cols].max(1).values, min=lowest)
+            part += [m, torch.exp(v[:, cols] - m[:, None]).sum(1)]
+        part.append(negs[:, cols].sum(1))
+        if state is None:
+            state = part
+            continue
+        for k in (0, 2):   # lse_merge into the running state
+            m, s, om, os_ = state[k], state[k + 1], part[k], part[k + 1]
+            mx = torch.maximum(m, om)
+            state[k + 1] = s * torch.exp(m - mx) + os_ * torch.exp(om - mx)
+            state[k] = mx
+        state[4] = state[4] + part[4]
+    pm, ps, qm, qs, nc = state
+    return (pm + torch.log(torch.clamp(ps, min=1e-30)),
+            qm + torch.log(torch.clamp(qs, min=1e-30)), nc)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_column_split_and_combine(rng, split):
+    """Per-range (max, sum) merged in ascending order equals the plain K4,
+    with a range whose columns are all invalid (columns 64-127) and rows
+    with no valid negative (label 7: its only other-label columns are the
+    invalid ones, whose cn stays exactly -1e30)."""
+    n = 200
+    labels = np.full(n, 7)
+    labels[64:128] = 9
+    labels[150:170] = 3
+    valid = np.ones(n, np.float32)
+    valid[64:128] = 0.0
+    labels[150:170] = 7   # no valid negative for any label-7 row
+    emb = rng.randn(n, 12).astype(np.float32)
+    ops = prep_operands(_t(emb), _t(labels), _t(valid), "f32")
+    got = _split_model(ops, MARGIN, split)
+    want = lifted_fwd_plain(ops, MARGIN)
+    np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+    sentinel = want[1] <= -0.5e30
+    assert bool(sentinel[labels == 7].all()) and not sentinel[64:128].any()
+    assert torch.equal(got[1][sentinel], want[1][sentinel])
+    assert bool((got[1][sentinel] == np.float32(-1e30)).all())
+    _close(got[0], want[0], 1e-5)
+    _close(got[1][~sentinel], want[1][~sentinel], 1e-5)
+
+
+@pytest.mark.parametrize("n,sms,want", [
+    (16, 132, 1), (300, 132, 5), (512, 132, 8), (777, 132, 7),
+    (1000, 132, 8), (8192, 132, 1), (16384, 132, 1), (512, 16, 2)])
+def test_fwd_split_table(n, sms, want):
+    assert fwd_split(n, sms) == want
+
+
+@pytest.mark.parametrize("sms", [16, 132])
+def test_fwd_split_ranges_fill_without_passing(sms):
+    """No range is empty, and row blocks times ranges stay within the SM
+    count unless one range is all there is."""
+    for n in range(1, 20000, 97):
+        tiles = -(-n // 64)
+        split = fwd_split(n, sms)
+        per = -(-tiles // split)
+        assert 1 <= split <= tiles and (split - 1) * per < tiles
+        assert split == 1 or tiles * split <= sms
+
+
+@pytest.mark.parametrize("d", [1, 7, 90])
+def test_pad_depth_keeps_lifted_stats(rng, d):
+    """The zero columns that f32 TMA rows need (a multiple of 4) leave the
+    plain K4 bit-identical."""
+    emb, labels = _clustered(rng, n=45, dim=d)
+    valid = (rng.rand(45) > 0.2).astype(np.float32)
+    ops = prep_operands(_t(emb) * 3.0, _t(labels), _t(valid), "f32")
+    padded = pad_depth(ops.opd, 4)
+    assert padded.shape == (45, -(-d // 4) * 4)
+    assert torch.equal(padded[:, :d], ops.opd) and not padded[:, d:].any()
+    for got, want in zip(lifted_fwd_plain(ops._replace(opd=padded), MARGIN),
+                         lifted_fwd_plain(ops, MARGIN)):
+        assert torch.equal(got, want)
+
+
+def test_backward_past_1024_columns_matches_jax(rng):
+    """d = 1536, past the 1024 columns the card's K5 holds in shared memory
+    at once (it walks d in chunks there): the port's recompute backward
+    against the JAX package's VJP through its K5 (interpret mode), with a
+    valid mask and arbitrary cotangents.  Unit rows (taken through the row
+    forward all the same): at this depth unnormalised rows have squared
+    distances in the thousands, whose f32 rounding alone moves the
+    softmax weights past the gradient tolerance."""
+    emb, labels = _clustered(rng, n=24, dim=1536, normed=True)
+    valid = (rng.rand(24) > 0.2).astype(np.float32)
+    g_fp = rng.randn(24).astype(np.float32)
+    g_cn = rng.randn(24).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jax_fused_lifted(
+        x, jnp.asarray(labels), jnp.asarray(valid), MARGIN, 16, "f32",
+        False)[:2], jnp.asarray(emb))
+    want = np.asarray(vjp((jnp.asarray(g_fp), jnp.asarray(g_cn)))[0])
+    ops = prep_operands(_t(emb), _t(labels), _t(valid), "f32")
+    fp, cn, _ = lifted_fwd_plain(ops, MARGIN)
+    got = lifted_bwd_plain(ops, fp, cn, _t(g_fp), _t(g_cn), MARGIN)
+    assert got.shape == (24, 1536)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-5)
