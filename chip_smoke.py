@@ -21,7 +21,9 @@ Phases, each fatal on failure (no error is caught):
    validation shape on the trained model's embeddings; the gradient through
    the autograd wrapper against a dense autograd oracle; kernel, plain,
    library (``torch.matmul``) and bound times;
-4. the K1-vs-K3 timing grid (N x d in bf16) that sets ``use_triangular``;
+4. the K1-vs-K3 timing grid (N x d in bf16) that sets ``use_triangular``,
+   with the plain version's and the library product's times at its largest
+   cell (N=16384, d=1024);
 5. the fused-mining path at the kernel sweep's shapes (N=8192 and 16384,
    d=1024, bf16): ``batch_hard_fused`` forward and backward with
    algo="tri", "row" and "auto" (loss, stats and gradient bit-equal), the
@@ -30,16 +32,17 @@ Phases, each fatal on failure (no error is caught):
 6. K7 (``sqdist``) against its plain version at three shapes, duplicate
    rows included; kernel, plain, library and bound times; the public
    ``sqdist`` as its path, with its launch count;
-7. lifted kernels: K4 (``lifted_fwd``; f32 on 3xTF32 tensor cores), K5
-   (``lifted_bwd``) and K6 (``lifted_fwd_tri``) against their plain
-   PyTorch versions on the card, at the trainer's shape (N=512, d=128) in
-   f32 and bf16, unnormalised inputs for K4/K5, ragged N and d with a valid
-   mask and 64-bit labels, an f32 depth TMA needs padded (d=90), inputs
-   exact in TF32, rows with no valid negative, N=8192 and N=16384 with
-   d=128, K5 after both forwards and at d=1536 and 2048 (past its
-   accumulator's 1024 columns), and the gradient through
+7. lifted kernels: K4 (``lifted_fwd``), K5 (``lifted_bwd``; both f32 on
+   3xTF32 tensor cores, bf16 on FMA) and K6 (``lifted_fwd_tri``) against
+   their plain PyTorch versions on the card, at the trainer's shape (N=512,
+   d=128) in f32 and bf16, unnormalised inputs for K4/K5, ragged N and d
+   with a valid mask and 64-bit labels, an f32 depth TMA needs padded
+   (d=90), inputs exact in TF32, rows with no valid negative, N=8192 and
+   N=16384 with d=128, K5 after both forwards and at d=1536 and 2048 (12
+   and 16 chunks of its 128 gradient columns), and the gradient through
    ``lifted_loss_fused`` against dense autograd (bounded and not); kernel,
-   plain, library and bound times, and K4's and K6's two launches apart;
+   plain, library and bound times, K4's, K5's and K6's launches apart, and
+   K5 bit-identical from call to call;
 8. trainer: the port's batch-hard trainer, ConvRTSN at full width (3 TSN
    segments of 8x8x1536 resnet maps, n_C=20, emb_dim=128, class-balanced
    batch 512, event budget 1000, 3 sessions per batch, Adam eps=0.1) on a
@@ -481,6 +484,29 @@ def gate_grid():
             torch.cuda.empty_cache()
     print(f"[gate] use_triangular picks the faster winner-tracking kernel "
           f"in {agree} of {total} cells", flush=True)
+
+
+def gate_corner_times():
+    """K1/K2's plain version and the library product (one
+    ``torch.matmul``) at the grid's largest cell, N=16384, d=1024 bf16, the
+    kernel table's last column of K1-K3 (CUDA-graph replay of 3 calls,
+    plain and library in turns)."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        stats_plain)
+    n, d = GATE_NS[-1], GATE_DS[-1]
+    _, _, ops = random_operands(n, d, "bf16", seed=n + d)
+    times = {}
+    calls = {"plain_idx": lambda: stats_plain(ops, True),
+             "plain_noidx": lambda: stats_plain(ops, False),
+             "library": lambda: torch.matmul(ops.opd, ops.opd.T)}
+    for key in list(calls) + list(calls)[::-1]:
+        t = device_ms(calls[key], reps=3, iters=3)
+        times[key] = min(times.get(key, t), t)
+    print(f"[gate] N={n} d={d} bf16 plain and library ms "
+          + json.dumps(times), flush=True)
+    del ops
+    torch.cuda.empty_cache()
 
 
 MINING_NS, MINING_D = (8192, 16384), 1024
@@ -966,6 +992,43 @@ def k4_combine_cost(ops):
               "device time in the profiler trace)", flush=True)
 
 
+def k5_launch_cost(ops):
+    """f32 K5's launches apart: the 3xTF32 tile walk and, where it has
+    more than one column range, the ascending-order combine."""
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        sm_count as device_sms)
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted import bwd_grid
+    n, d = ops.opd.shape
+    ranges, chunks = bwd_grid(n, d, device_sms(ops.opd.device))
+    keys = ("lifted_bwd_tc",) + (("lifted_bwd_combine",) if ranges > 1
+                                 else ())
+    per = pass_times(lifted_calls(ops)["lifted_bwd"][0], keys)
+    if per:
+        print(f"[lifted] K5 f32 at N={n} d={d} ({ranges} column ranges, "
+              f"{chunks} chunks): "
+              + ", ".join(f"{k} {v:.5f} ms" for k, v in per.items())
+              + f", all {sum(per.values()):.5f} ms per call (torch.profiler "
+              "device time)", flush=True)
+    else:
+        print(f"[lifted] K5 f32 at N={n} d={d}: launches not timed apart (no "
+              "device time in the profiler trace)", flush=True)
+
+
+def k5_deterministic(ops):
+    """Two calls of K5 on the same inputs give the same bits (no float
+    atomics: each range's partial written once, added in a fixed order)."""
+    import torch
+    call = lifted_calls(ops)["lifted_bwd"][0]
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    n, d = ops.opd.shape
+    if not torch.equal(first, second):
+        fail(f"K5 at N={n} d={d}: two calls differ in "
+             f"{int((first != second).sum())} entries")
+    print(f"[lifted] K5 {ops.opd.dtype} at N={n} d={d}: two calls "
+          "bit-identical", flush=True)
+
+
 def k3_combine_cost(ops):
     """K3's two launches apart (the tile walk and the ascending-order
     combine), with winners."""
@@ -1009,6 +1072,8 @@ def lifted_kernel_phase(sfu):
             main_errs = errs
             k6_combine_cost(ops)
             k4_combine_cost(ops)
+            k5_launch_cost(ops)
+            k5_deterministic(ops)
     emb, labels, valid = make_case(512, 128, "float", gen)
     check_lifted("unnormalised-x3", emb * 3.0, labels, valid, "f32",
                  bounded=False)
@@ -1037,19 +1102,24 @@ def lifted_kernel_phase(sfu):
     large_rows = time_lifted("large-d128", ops, "f32", sfu)
     k6_combine_cost(ops)
     k4_combine_cost(ops)
+    k5_launch_cost(ops)
+    k5_deterministic(ops)
     del ops
     torch.cuda.empty_cache()
     ops, _ = check_lifted("large-n16384", *make_case(
         16384, 128, "float", gen, n_classes=64), "f32", bounded=False)
-    time_lifted("large-n16384", ops, "f32", sfu, kernels=("lifted_fwd",))
+    time_lifted("large-n16384", ops, "f32", sfu,
+                kernels=("lifted_fwd", "lifted_bwd"))
     k4_combine_cost(ops)
+    k5_launch_cost(ops)
     del ops
     torch.cuda.empty_cache()
-    # K5 past the 1024 columns its accumulator holds, after K4
+    # K5 over 12 and 16 chunks of 128 gradient columns, after K4
     for d in (1536, 2048):
         ops, _ = check_lifted(f"deep-d{d}", *make_case(
             1000, d, "float", gen, invalid_frac=0.1), "f32", bounded=False)
         time_lifted(f"deep-d{d}", ops, "f32", sfu, kernels=("lifted_bwd",))
+        k5_launch_cost(ops)
     for bounded in (True, False):
         check_lifted_gradient(gen, bounded)
     return main_rows, main_errs, large_rows
@@ -1292,6 +1362,7 @@ def main():
     # K2 and K3 are held bit-equal to K1, so all carry K1's error
     main_rows, main_err = kernel_phase()
     gate_grid()
+    gate_corner_times()
     mining = mining_path()
     mining_times()
     sq_row, sq_err, sq_launches = sqdist_phase()

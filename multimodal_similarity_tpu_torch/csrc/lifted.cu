@@ -5,9 +5,9 @@
 //   lifted_fwd_tc (K4, f32)     -> lifted.py:85 _fwd_kernel
 //   + lifted_fwd_combine           (via _lifted_fwd_pallas :187)
 //   lifted_fwd_kernel (K4, bf16)
-//   lifted_bwd_kernel (K5)      -> lifted.py:126 _bwd_kernel, both the
-//                                  straight and the transposed pass
-//                                  (via _lifted_bwd_pallas :227, called
+//   lifted_bwd_tc (K5, f32)     -> lifted.py:126 _bwd_kernel, both the
+//   + lifted_bwd_combine           straight and the transposed pass
+//   lifted_bwd_kernel (K5, bf16)   (via _lifted_bwd_pallas :227, called
 //                                  twice at :340-345)
 //   lifted_tri_kernel (K6)      -> lifted_tri.py:93 _tri_lifted_kernel
 //   + lifted_tri_reduce            (via lifted_fwd_tri :120)
@@ -76,17 +76,45 @@
 //
 // K5 (recompute backward).  With C_ij = g_fp_i softmax^pos_ij pos_ij
 // - g_cn_i softmax^neg_ij neg_ij (softmaxes rebuilt from the saved fp, cn),
-//   grad_i = 2 sum_j (C_ij + C_ji) (e_i - e_j).
-// One CTA owns BM output rows and loops over column tiles of 128.  For each
-// tile it recomputes the distance tile once and forms both C_ij (row i's
-// stats: the TPU's straight pass) and C_ji (column j's stats: the TPU's
-// transposed pass, which there took a second launch), stages their sum in
-// shared memory, and multiplies it by the column tile of E, streamed in
-// 32 x 128 slices, into a [BM, d] accumulator in shared memory.  A depth
-// beyond 1024 is walked in chunks of 1024 columns, the accumulator's room:
-// each chunk recomputes the column tiles and C (the row sums of C are kept
-// from the first).  One launch, no atomics, each output row written by one
-// CTA: deterministic.
+//   grad_i = 2 (rowsum_i(C + C^T) e_i - sum_j (C_ij + C_ji) e_j).
+// Each tile forms both C_ij (row i's stats: the TPU's straight pass) and
+// C_ji (column j's stats and the penalty on i: the TPU's transposed pass,
+// which there took a second launch) from one distance tile, so a backward
+// is one tile walk.
+//   K5, f32 (lifted_bwd_tc + lifted_bwd_combine): both products on the
+// tensor cores through 3xTF32, as K4.  Its work is 4 N^2 d products (the
+// distance tile, then C E) and two exponentials a pair: at N = 8192, d =
+// 128 a bound of 0.258 ms, all but a few percent of it the products, so the
+// design puts both on wgmma.  A CTA owns 64 rows, a range of 64-column
+// tiles and a chunk of 128 gradient columns, in two consumer warpgroups
+// and a TMA producer warp (lifted_bwd_tc's note below); per tile the
+// warpgroups form S = <e_i, e_j> (each its 32 columns, m64n32 over the
+// depth), turn S into C in registers (the masks, self pairs and -1e30
+// sentinels as the TPU kernel; columns past n and rows past n give 0),
+// write C split into hi and lo to shared memory in the swizzled K-major
+// layout wgmma reads, and add C E (m64n64, each warpgroup 64 of the chunk's
+// columns) from E^T's hi and lo tiles: TF32 wgmma has no transposed form,
+// so B must be E^T, which the wrapper splits and zero-pads to whole tiles
+// (no box reads stale shared memory, whose NaN times a zero C would be
+// NaN).  The C E products stay in flight under the next tile's distance
+// products.  A depth past 128 takes one CTA per chunk, each recomputing
+// S and C over the whole depth: (d / 128 + 1) 2 N^2 d products in all, the
+// price of a 64-register accumulator (a 2-warpgroup CTA is capped at 168
+// registers; it uses 166, no spill).  Small N splits the columns into
+// ranges as K4 does (bwd_grid): each range writes its G and row sums to
+// partials, every entry once, and lifted_bwd_combine adds the ranges in
+// ascending order and forms 2 (rowsum e - G); with one range the tile walk
+// writes the gradient itself.  No float atomics: bit-identical from run to
+// run.  On the card (an H100 at 700 W, scripts/k5_probe.py) neither the
+// tensor cores nor the epilogue alone bound it: at N = 8192 the kernel takes
+// about twice the bound, its products with their loads (epilogue skipped)
+// 82% of its time and its loads and epilogue (products skipped) 65%; the
+// serial chain of TMA loads, products and epilogue per tile does.
+//   K5, bf16 (lifted_bwd_kernel): the first port's FMA design.  One CTA
+// owns BM output rows and loops over column tiles of 128, recomputes the
+// distance tile, stages C in shared memory and multiplies it by the column
+// tile of E into a [BM, d] accumulator in shared memory; a depth beyond 1024
+// is walked in chunks of 1024 columns, each recomputing the tiles and C.
 //
 // K6 (bounded triangular forward, l2-normalised inputs: dist <= 4, so the
 // plain sums of exp cannot overflow and need no max tracking).  One CTA per
@@ -104,22 +132,19 @@
 // run to run.  B = 32 while the 64-row walk would leave SMs idle (N = 512:
 // 136 CTAs on 132 SMs), else B = 64; the wrapper chooses and allocates.
 //
-// Precision.  f32 K4 is 3xTF32 (above); K5, K6 and bf16 K4 form products of
-// the operand's values with f32 FMA (bf16 values are exact in f32).  Every
-// epilogue (distance, masks, exp, the coefficient matrix C and its product
-// with E) runs in f32; the TPU ran the distance epilogue in bf16 and
-// rounded C to bf16 for its MXU.
+// Precision.  f32 K4 and K5 are 3xTF32 (above; K5 splits C into hi and lo
+// too); K6 and bf16 K4/K5 form products of the operand's values with f32
+// FMA (bf16 values are exact in f32).  Every epilogue (distance, masks, exp,
+// the coefficient matrix C) runs in f32; the TPU ran the distance epilogue
+// in bf16 and rounded C to bf16 for its MXU.
 //
-// K5 and K6 on an H100 (SXM, 700 W).  At the trainer's shape (N = 512,
-// d = 128, f32) K6 needs half of K4's products and about N^2 / 2
-// exponentials, K5 4 N^2 d = 134 MFLOP and up to 2 N^2 exponentials;
-// inputs and outputs are a few hundred KB.  Each is a few microseconds or
-// less at the f32 FMA, SFU or HBM rate, so they are bound by latency: a
-// serial chain of tile loads, barriers and FMA steps per CTA, and how many
-// SMs the grid occupies.  The designs answer with 8-row CTAs for K5 at
-// small N (64 CTAs at N = 512) and 32-row tiles for K6 (136 CTAs).  At
-// N = 8192 the FMA work dominates; their tensor-core redesigns are later
-// work.
+// K6 on an H100 (SXM, 700 W).  At the trainer's shape (N = 512, d = 128,
+// f32) it needs half of K4's products and about N^2 / 2 exponentials; inputs
+// and outputs are a few hundred KB.  That is a few microseconds or less at
+// the f32 FMA, SFU or HBM rate, so it is bound by latency: a serial chain of
+// tile loads, barriers and FMA steps per CTA, and how many SMs the grid
+// occupies; 32-row tiles give 136 CTAs.  At N = 8192 the FMA work
+// dominates; its tensor-core redesign is later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -127,6 +152,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <initializer_list>
 
 #include "tile.cuh"
 #include "wgmma_tf32.cuh"
@@ -650,6 +676,304 @@ lifted_bwd_kernel(const T* __restrict__ emb, int n, int d, int kc,
   }
 }
 
+// ------------------------------------------- K5, f32 on the tensor cores ----
+
+// lifted_bwd_tc: a CTA owns 64 output rows, one range of 64-column tiles
+// and one chunk of BWD_DC gradient columns, in two consumer warpgroups and a
+// producer warp.  Per tile, warpgroup w forms the distance products of the
+// 64 rows by the tile's columns 32 w .. 32 w + 31 (m64n32, over the whole
+// depth), turns them into C_ij + C_ji in registers, and writes its half of
+// C, split into hi and lo, to shared memory in the 128-byte-swizzled K-major
+// layout TMA gives a box (its 32 columns are one k-slice); both then add
+// C times the tile's rows of E to their gradient accumulators (m64n64,
+// warpgroup w owning chunk columns 64 w .. 64 w + 63), B being E^T's hi and
+// lo tiles.  The per-tile chain of loads, products and epilogue bounds it
+// (scripts/k5_probe.py), so shared memory goes to the loads: a ring of
+// three stages of rows and columns, in place of a second C buffer.  Then
+// the E^T tiles of one column tile (hi, lo x 2 k-slices x 2
+// warpgroups' 64 rows), the C tile (hi, lo x 2 k-slices) and BwdSmem, all
+// 1024-aligned.
+constexpr int BWD_BN = 64;                    // columns a tile
+constexpr int BWD_DC = 128;                   // gradient columns a CTA
+constexpr int BWD_CONSUMERS = 256;
+constexpr int BWD_THREADS = BWD_CONSUMERS + 32;
+constexpr int BWD_BOX = msim::TF32_BOX_BYTES;  // 64 rows x 32 f32: 8 KB
+using BwdRing = msim::Tf32Ring<msim::WG_BOX, BWD_BN, 3>;
+constexpr int BWD_RING = (BwdRing::BYTES + 1023) / 1024 * 1024;
+constexpr int BWD_E = BWD_RING;                // [hi, lo][k-slice][wg]
+constexpr int BWD_E_BYTES = 8 * BWD_BOX;
+constexpr int BWD_C = BWD_E + BWD_E_BYTES;     // [hi, lo][k-slice]
+constexpr int BWD_C_BYTES = 4 * BWD_BOX;
+struct BwdSmem {
+  float4 col[2][BWD_BN][2];   // (sq, sq_pen, valid, in), (fp, cn, g_fp, g_cn)
+  long long lab[2][BWD_BN];
+  float rowsum[2][msim::WG_BOX];
+  uint64_t e_full, e_empty;
+};
+constexpr int BWD_SMEM = BWD_C + BWD_C_BYTES + sizeof(BwdSmem) + 1024;
+static_assert(BWD_DC == 2 * msim::WG_BOX, "two warpgroups of 64 columns");
+
+// Column j's data for the coefficient tile; all zero past n, where `in`
+// (the last field of the first float4) marks the column out.
+__device__ __forceinline__ void load_bwd_col(
+    const float* __restrict__ sq, const float* __restrict__ sq_pen,
+    const float* __restrict__ valid, const float* __restrict__ fp,
+    const float* __restrict__ cn, const float* __restrict__ gfp,
+    const float* __restrict__ gcn, const long long* __restrict__ labels,
+    int j, int n, float4 (&f)[2], long long& lab) {
+  if (j < n) {
+    f[0] = make_float4(sq[j], sq_pen[j], valid[j], 1.f);
+    f[1] = make_float4(fp[j], cn[j], gfp[j], gcn[j]);
+    lab = labels[j];
+  } else {
+    f[0] = f[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    lab = 0;
+  }
+}
+
+// x rounded to the nearest TF32 value, as ops/kernels/lifted.py tf32_split
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+lifted_bwd_tc(const __grid_constant__ CUtensorMap map_hi,
+              const __grid_constant__ CUtensorMap map_lo,
+              const __grid_constant__ CUtensorMap map_hi_t,
+              const __grid_constant__ CUtensorMap map_lo_t,
+              const float* __restrict__ emb, int n, int d, int d4,
+              int tiles_per_range, const float* __restrict__ sq,
+              const float* __restrict__ sq_pen,
+              const long long* __restrict__ labels,
+              const float* __restrict__ valid, const float* __restrict__ fp,
+              const float* __restrict__ cn, const float* __restrict__ gfp,
+              const float* __restrict__ gcn, float margin,
+              float* __restrict__ partial, float* __restrict__ rowsum_part,
+              float* __restrict__ grad) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = msim::align_1024(smem_raw);
+  const BwdRing ring{msim::smem_u32(smem)};
+  const uint32_t e_base = msim::smem_u32(smem + BWD_E);
+  const uint32_t c_base = msim::smem_u32(smem + BWD_C);
+  BwdSmem& sh = *reinterpret_cast<BwdSmem*>(smem + BWD_C + BWD_C_BYTES);
+  if (threadIdx.x == 0) {
+    msim::mbar_init(msim::smem_u32(&sh.e_full), 1);
+    msim::mbar_init(msim::smem_u32(&sh.e_empty), BWD_CONSUMERS);
+    ring.init(BWD_CONSUMERS);   // ends with the barrier-init fence
+  }
+  __syncthreads();
+
+  const int k_slices = (d4 + msim::TF32_BK - 1) / msim::TF32_BK;
+  const int n_tiles = (n + BWD_BN - 1) / BWD_BN;
+  const int t_begin = blockIdx.y * tiles_per_range;
+  const int t_end = min(n_tiles, t_begin + tiles_per_range);
+  const int row0 = blockIdx.x * msim::WG_BOX;
+  const int k0 = blockIdx.z * BWD_DC;   // this CTA's gradient columns
+
+  if (threadIdx.x >= BWD_CONSUMERS) {   // the producer warp: one thread
+    if (threadIdx.x == BWD_CONSUMERS) {
+      int it = 0;
+      for (int t = t_begin, k = 0; t < t_end; ++t, ++k) {
+        ring.load(&map_hi, &map_lo, it, row0, t * BWD_BN, n, k_slices);
+        // E^T rows k0.. k0 + 127, columns of tile t: every box lies inside
+        // the zero-padded E^T, so none holds stale shared memory
+        msim::mbar_wait(msim::smem_u32(&sh.e_empty), (k & 1) ^ 1);
+        msim::mbar_expect_tx(msim::smem_u32(&sh.e_full), BWD_E_BYTES);
+        for (int b = 0; b < 8; ++b)
+          msim::tma_load(e_base + b * BWD_BOX, (b & 4) ? &map_lo_t : &map_hi_t,
+                         t * BWD_BN + ((b >> 1) & 1) * msim::TF32_BK,
+                         k0 + (b & 1) * msim::WG_BOX,
+                         msim::smem_u32(&sh.e_full));
+      }
+    }
+    return;
+  }
+
+  const int w = threadIdx.x / 128, lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  // this thread's two rows of both accumulators (wgmma's D fragment)
+  int rr[2];
+  float sq_i[2], sqp_i[2], v_i[2], fp_i[2], cn_i[2], gfp_i[2], gcn_i[2];
+  long long la[2];
+  bool iin[2];
+  float rowsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rr[h] = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2) + 8 * h;
+    const int i = row0 + rr[h];
+    iin[h] = i < n;
+    sq_i[h] = iin[h] ? sq[i] : 0.f;
+    sqp_i[h] = iin[h] ? sq_pen[i] : 0.f;
+    v_i[h] = iin[h] ? valid[i] : 0.f;
+    fp_i[h] = iin[h] ? fp[i] : 0.f;
+    cn_i[h] = iin[h] ? cn[i] : 0.f;
+    gfp_i[h] = iin[h] ? gfp[i] : 0.f;
+    gcn_i[h] = iin[h] ? gcn[i] : 0.f;
+    la[h] = iin[h] ? labels[i] : 0;
+  }
+  // column data a tile ahead: thread e < 64 owns column e of each tile
+  const int e = threadIdx.x;
+  float4 side[2];
+  long long side_lab;
+  if (e < BWD_BN) {
+    load_bwd_col(sq, sq_pen, valid, fp, cn, gfp, gcn, labels,
+                 t_begin * BWD_BN + e, n, side, side_lab);
+    sh.col[0][e][0] = side[0];
+    sh.col[0][e][1] = side[1];
+    sh.lab[0][e] = side_lab;
+    if (t_begin + 1 < t_end)
+      load_bwd_col(sq, sq_pen, valid, fp, cn, gfp, gcn, labels,
+                   (t_begin + 1) * BWD_BN + e, n, side, side_lab);
+  }
+  msim::bar_sync(1, BWD_CONSUMERS);
+
+  float g[BWD_DC / 4];   // 64 rows x this warpgroup's 64 gradient columns
+#pragma unroll
+  for (int x = 0; x < BWD_DC / 4; ++x) g[x] = 0.f;
+  msim::fence_regs(g);
+  int it = 0;
+  for (int t = t_begin, k = 0; t < t_end; ++t, ++k) {
+    const int b = k & 1;
+    // <e_i, e_j> for the 64 rows and this warpgroup's 32 columns; it ends
+    // with every product done, the last tile's C E product included
+    float s[16];
+    ring.product_part(s, it, k_slices, 0, w * 32 * msim::TF32_BK * 4);
+    if (k > 0) msim::mbar_arrive(msim::smem_u32(&sh.e_empty));
+    // C is free once both warpgroups' products of the last tile are done
+    msim::bar_sync(1, BWD_CONSUMERS);
+
+    // C_ij + C_ji of element x: row rr[(x / 2) % 2], tile column
+    // 32 w + 8 (x / 4) + 2 q + x % 2
+    float c[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const int h = (x >> 1) & 1;
+      const int jj = 32 * w + 8 * (x >> 2) + 2 * q + (x & 1);
+      const float4 ca = sh.col[b][jj][0], cb = sh.col[b][jj][1];
+      const long long lb = sh.lab[b][jj];
+      const bool self = row0 + rr[h] == t * BWD_BN + jj;
+      // row i over column j (i's stats), and row j over column i (j's)
+      const float d1 = fmaxf(__fmaf_rn(-2.f, s[x], sq_i[h] + ca.y), 0.f);
+      const float d2 = fmaxf(__fmaf_rn(-2.f, s[x], ca.x + sqp_i[h]), 0.f);
+      const bool same1 = ca.z > 0.f && la[h] == lb;
+      const bool same2 = v_i[h] > 0.f && la[h] == lb;
+      const float x1 = __expf(same1
+          ? (d1 - (1.f - ca.z) * POS_INF) - fp_i[h]
+          : (margin - d1) - cn_i[h]);
+      const float x2 = __expf(same2
+          ? (d2 - (1.f - v_i[h]) * POS_INF) - cb.x
+          : (margin - d2) - cb.y);
+      const float c1 = same1 ? (self ? 0.f : gfp_i[h] * x1)
+                             : -(gcn_i[h] * (x1 * ca.z));
+      const float c2 = same2 ? (self ? 0.f : cb.z * x2)
+                             : -(cb.w * (x2 * v_i[h]));
+      c[x] = (ca.w > 0.f && iin[h]) ? c1 + c2 : 0.f;
+      rowsum[h] += c[x];
+    }
+    // C into k-slice w, hi then lo: element (r, jj) of a slice
+    // at r * 128 + ((jj / 4) ^ (r % 8)) * 16 + (jj % 4) * 4, TMA's swizzle
+    unsigned char* cb_hi = smem + BWD_C + w * BWD_BOX;
+#pragma unroll
+    for (int x = 0; x < 16; x += 2) {
+      const int r = rr[(x >> 1) & 1];
+      const int chunk = 2 * (x >> 2) + (q >> 1);
+      const int at = r * 128 + ((chunk ^ (r & 7)) << 4) + (q & 1) * 8;
+      const float h0 = tf32_hi(c[x]), h1 = tf32_hi(c[x + 1]);
+      *reinterpret_cast<float2*>(cb_hi + at) = make_float2(h0, h1);
+      *reinterpret_cast<float2*>(cb_hi + 2 * BWD_BOX + at) =
+          make_float2(c[x] - h0, c[x + 1] - h1);
+    }
+    // the next tile's column data into the other buffer (its last reader,
+    // tile k - 1, is past the barrier below)
+    if (e < BWD_BN && t + 1 < t_end) {
+      sh.col[b ^ 1][e][0] = side[0];
+      sh.col[b ^ 1][e][1] = side[1];
+      sh.lab[b ^ 1][e] = side_lab;
+      if (t + 2 < t_end)
+        load_bwd_col(sq, sq_pen, valid, fp, cn, gfp, gcn, labels,
+                     (t + 2) * BWD_BN + e, n, side, side_lab);
+    }
+    // C, written by the generic proxy, is read by wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    msim::bar_sync(1, BWD_CONSUMERS);
+
+    // g += C E_tile in 3xTF32, left in flight under the next tile's
+    // distance products
+    msim::mbar_wait(msim::smem_u32(&sh.e_full), k & 1);
+    const uint32_t c_hi = c_base, c_lo = c_hi + 2 * BWD_BOX;
+    const uint32_t e_hi = e_base + w * BWD_BOX, e_lo = e_hi + 4 * BWD_BOX;
+    msim::fence_regs(g);
+    msim::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int kk = 0; kk < msim::TF32_BK / 8; ++kk) {
+        const uint32_t a = ks * BWD_BOX + 32 * kk;
+        const uint32_t bo = ks * 2 * BWD_BOX + 32 * kk;
+        msim::tf32_step(g, msim::smem_desc(c_hi + a),
+                        msim::smem_desc(e_lo + bo));
+        msim::tf32_step(g, msim::smem_desc(c_lo + a),
+                        msim::smem_desc(e_hi + bo));
+        msim::tf32_step(g, msim::smem_desc(c_hi + a),
+                        msim::smem_desc(e_hi + bo));
+      }
+    msim::wgmma_commit();
+  }
+  msim::wgmma_wait<0>();
+  msim::fence_regs(g);
+
+  // row sums: the four threads of a row, then the two warpgroups, in a
+  // fixed order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rowsum[h] += __shfl_xor_sync(0xffffffffu, rowsum[h], 1);
+    rowsum[h] += __shfl_xor_sync(0xffffffffu, rowsum[h], 2);
+    if (q == 0) sh.rowsum[w][rr[h]] = rowsum[h];
+  }
+  msim::bar_sync(1, BWD_CONSUMERS);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    rowsum[h] = sh.rowsum[0][rr[h]] + sh.rowsum[1][rr[h]];
+
+  // element x of g: row rr[(x / 2) % 2], column k0 + 64 w + 8 (x / 4) +
+  // 2 q + x % 2; one range writes the gradient, several their partials
+  const bool direct = gridDim.y == 1;
+  float* out = direct ? grad : partial + (size_t)blockIdx.y * n * d;
+#pragma unroll
+  for (int x = 0; x < BWD_DC / 4; ++x) {
+    const int h = (x >> 1) & 1;
+    const int i = row0 + rr[h];
+    const int kc = k0 + 64 * w + 8 * (x >> 2) + 2 * q + (x & 1);
+    if (!iin[h] || kc >= d) continue;
+    const size_t at = (size_t)i * d + kc;
+    out[at] = direct ? 2.f * (rowsum[h] * emb[at] - g[x]) : g[x];
+  }
+  if (!direct && blockIdx.z == 0 && w == 0 && q == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (iin[h]) rowsum_part[(size_t)blockIdx.y * n + row0 + rr[h]] =
+          rowsum[h];
+}
+
+// grad = 2 (rowsum e - G), rowsum and G summed over ranges 0..S-1 in
+// ascending order
+__global__ void __launch_bounds__(THREADS)
+lifted_bwd_combine(const float* __restrict__ partial,
+                   const float* __restrict__ rowsum_part,
+                   const float* __restrict__ emb, int n, int d, int ranges,
+                   float* __restrict__ grad) {
+  const size_t at = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  const size_t total = (size_t)n * d;
+  if (at >= total) return;
+  const int i = static_cast<int>(at / d);
+  float g = partial[at], rs = rowsum_part[i];
+  for (int r = 1; r < ranges; ++r) {
+    g += partial[r * total + at];
+    rs += rowsum_part[(size_t)r * n + i];
+  }
+  grad[at] = 2.f * (rs * emb[at] - g);
+}
+
 // ---------------------------------------------------------------- K6 ----
 
 // B x B tile pair (ti <= tj) of the upper triangle; 16 x 16 threads, each
@@ -842,6 +1166,43 @@ int launch_fwd_tc(const float* hi, const float* lo, int n, int d, int split,
   return 0;
 }
 
+int launch_bwd_tc(const float* hi, const float* lo, const float* hi_t,
+                  const float* lo_t, const float* emb, int n, int d, int d4,
+                  int split, const float* sq, const float* sq_pen,
+                  const long long* labels, const float* valid,
+                  const float* fp, const float* cn, const float* gfp,
+                  const float* gcn, float margin, float* partial,
+                  float* rowsum_part, float* grad, cudaStream_t s) {
+  const int n_tiles = (n + BWD_BN - 1) / BWD_BN;
+  const int chunks = (d + BWD_DC - 1) / BWD_DC;
+  CUtensorMap map_hi, map_lo, map_hi_t, map_lo_t;
+  int rc = msim::make_tensor_map_f32(&map_hi, hi, n, d4);
+  if (rc == 0) rc = msim::make_tensor_map_f32(&map_lo, lo, n, d4);
+  if (rc == 0)
+    rc = msim::make_tensor_map_f32(&map_hi_t, hi_t, chunks * BWD_DC,
+                                   n_tiles * BWD_BN);
+  if (rc == 0)
+    rc = msim::make_tensor_map_f32(&map_lo_t, lo_t, chunks * BWD_DC,
+                                   n_tiles * BWD_BN);
+  if (rc != 0) return rc;
+  cudaFuncSetAttribute(lifted_bwd_tc,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  // `split` ranges of whole tiles, none of them empty
+  const int per = (n_tiles + split - 1) / split;
+  const int ranges = (n_tiles + per - 1) / per;
+  const dim3 grid((n + msim::WG_BOX - 1) / msim::WG_BOX, ranges, chunks);
+  lifted_bwd_tc<<<grid, BWD_THREADS, BWD_SMEM, s>>>(
+      map_hi, map_lo, map_hi_t, map_lo_t, emb, n, d, d4, per, sq, sq_pen,
+      labels, valid, fp, cn, gfp, gcn, margin, partial, rowsum_part, grad);
+  if (ranges > 1) {
+    const size_t total = (size_t)n * d;
+    lifted_bwd_combine<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS,
+                         0, s>>>(partial, rowsum_part, emb, n, d, ranges,
+                                 grad);
+  }
+  return 0;
+}
+
 template <typename T, int TM>
 void launch_tri(const void* emb, int n, int d, const float* sq,
                 const long long* labels, const float* valid, float margin,
@@ -905,30 +1266,54 @@ extern "C" int lifted_fwd_tf32(const float* hi, const float* lo, int n, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: grad [n, d] f32 = the straight plus the transposed pass, any d (the
-// depth is walked in chunks of BWD_CHUNK columns beyond that).
-extern "C" int lifted_bwd(const void* emb, int emb_is_bf16, int n, int d,
-                          const float* sq, const float* sq_pen,
-                          const long long* labels, const float* valid,
-                          const float* fp, const float* cn, const float* gfp,
-                          const float* gcn, float margin, float* grad,
-                          void* stream) {
+// K5 for a bf16 emb [n, d] (an f32 one takes lifted_bwd_tf32): grad [n, d]
+// f32 = the straight plus the transposed pass, any d (the depth is walked
+// in chunks of BWD_CHUNK columns beyond that).
+extern "C" int lifted_bwd(const void* emb, int n, int d, const float* sq,
+                          const float* sq_pen, const long long* labels,
+                          const float* valid, const float* fp,
+                          const float* cn, const float* gfp, const float* gcn,
+                          float margin, float* grad, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = wide_rows(n);
-  int rc;
-  if (emb_is_bf16)
-    rc = wide ? launch_bwd<__nv_bfloat16, 4>(emb, n, d, sq, sq_pen, labels,
-                                             valid, fp, cn, gfp, gcn, margin,
-                                             grad, s)
-              : launch_bwd<__nv_bfloat16, 1>(emb, n, d, sq, sq_pen, labels,
-                                             valid, fp, cn, gfp, gcn, margin,
-                                             grad, s);
-  else
-    rc = wide ? launch_bwd<float, 4>(emb, n, d, sq, sq_pen, labels, valid,
-                                     fp, cn, gfp, gcn, margin, grad, s)
-              : launch_bwd<float, 1>(emb, n, d, sq, sq_pen, labels, valid,
-                                     fp, cn, gfp, gcn, margin, grad, s);
+  const int rc =
+      wide_rows(n)
+          ? launch_bwd<__nv_bfloat16, 4>(emb, n, d, sq, sq_pen, labels, valid,
+                                         fp, cn, gfp, gcn, margin, grad, s)
+          : launch_bwd<__nv_bfloat16, 1>(emb, n, d, sq, sq_pen, labels, valid,
+                                         fp, cn, gfp, gcn, margin, grad, s);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 for an f32 emb [n, d] on the tensor cores: hi and lo [n, d4], the TF32
+// split of emb padded to d4 (a multiple of 4, d4 >= d), and hi_t and lo_t
+// [ceil(d / 128) 128, ceil(n / 64) 64], the TF32 split of emb^T zero-padded
+// (all bases 16-byte aligned).  The column tiles are cut into `split`
+// ranges; with more than one, the ranges go through `partial` (at least
+// split * n * d floats) and `rowsum_part` (split * n) to a second launch
+// that adds them in ascending order.  Returns as lifted_bwd, or
+// msim::ENCODE_ERROR (+ the CUresult) when a tensor map cannot be built.
+extern "C" int lifted_bwd_tf32(const float* hi, const float* lo,
+                               const float* hi_t, const float* lo_t,
+                               const float* emb, int n, int d, int d4,
+                               int split, const float* sq,
+                               const float* sq_pen, const long long* labels,
+                               const float* valid, const float* fp,
+                               const float* cn, const float* gfp,
+                               const float* gcn, float margin,
+                               float* partial, float* rowsum_part,
+                               float* grad, void* stream) {
+  if (n <= 0) return 0;
+  if (d <= 0 || d4 < d || d4 % 4 != 0 || split < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (const float* p : {hi, lo, hi_t, lo_t})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = launch_bwd_tc(hi, lo, hi_t, lo_t, emb, n, d, d4, split, sq,
+                               sq_pen, labels, valid, fp, cn, gfp, gcn,
+                               margin, partial, rowsum_part, grad,
+                               static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // f32 tile products on Hopper's tensor cores through 3xTF32 (sm_90a), for
-// the lifted row forward (K4) of csrc/lifted.cu.  Built on the TMA, mbarrier
-// and descriptor primitives of csrc/wgmma_tile.cuh, which stays bf16-only
-// for the batch-hard kernels.
+// the lifted row forward (K4) and recompute backward (K5) of csrc/lifted.cu.
+// Built on the TMA, mbarrier and descriptor primitives of
+// csrc/wgmma_tile.cuh, which stays bf16-only for the batch-hard kernels.
 //
 // 3xTF32.  TF32 keeps 10 mantissa bits, too few for the port's 1e-4 f32
 // parity.  So each f32 operand x comes split in two by the caller
@@ -15,7 +15,8 @@
 // Operands.  hi and lo are row-major [n, d] f32 matrices with d a multiple
 // of 4 (a row is a multiple of 16 bytes, TMA's rule) and 16-byte aligned
 // bases.  Both sides of every product are rows of them, so A and B are
-// K-major, as wgmma reads TF32 (it has no transposed TF32 form).  TMA
+// K-major, as wgmma reads TF32 (it has no transposed TF32 form; K5's second
+// product reads its coefficient tile from shared memory and E^T's split).  TMA
 // copies boxes of 64 rows x 32 f32 (128 bytes a row, the 128-byte swizzle
 // of csrc/wgmma_tile.cuh) and fills rows past n and columns past d with
 // zeros.  A box that would start past n is not issued; its rows hold stale
@@ -37,6 +38,24 @@ constexpr int TF32_BK = 32;   // k-slice depth: 32 f32, one 128-byte row
 constexpr int TF32_BOX_BYTES = WG_BOX * TF32_BK * 4;
 
 // d += A B^T for a 64-row A and an N-row B (TF32, both K-major, 8 deep)
+__device__ __forceinline__ void wgmma_tf32_m64n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_tf32_m64n64(float (&d)[32], uint64_t da,
                                                   uint64_t db) {
   asm volatile(
@@ -97,6 +116,10 @@ __device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[64],
       : "l"(da), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void tf32_step(float (&d)[16], uint64_t da,
+                                          uint64_t db) {
+  wgmma_tf32_m64n32(d, da, db);
+}
 __device__ __forceinline__ void tf32_step(float (&d)[32], uint64_t da,
                                           uint64_t db) {
   wgmma_tf32_m64n64(d, da, db);
@@ -170,16 +193,25 @@ struct Tf32Ring {
   // once the next one's products are issued and its own are done.
   __device__ __forceinline__ void product(float (&acc)[B_ROWS / 2], int& it,
                                           int k_slices) const {
-    const uint32_t wg_rows = (threadIdx.x / 128) * TF32_BOX_BYTES;
+    product_part(acc, it, k_slices, (threadIdx.x / 128) * TF32_BOX_BYTES, 0);
+  }
+
+  // As product, for the 64 rows of A at byte offset a_off of each A tile
+  // and the 2 N rows of B at byte offset b_off of each B tile (offsets of
+  // whole 8-row groups, multiples of 1024 bytes).
+  template <int N>
+  __device__ __forceinline__ void product_part(float (&acc)[N], int& it,
+                                               int k_slices, uint32_t a_off,
+                                               uint32_t b_off) const {
 #pragma unroll
-    for (int e = 0; e < B_ROWS / 2; ++e) acc[e] = 0.f;
+    for (int e = 0; e < N; ++e) acc[e] = 0.f;
     fence_regs(acc);
     int prev = -1;
     for (int ks = 0; ks < k_slices; ++ks, ++it) {
       const int s = it % STAGES;
       mbar_wait(full(s), (it / STAGES) & 1);
-      const uint32_t ah = a_hi(s) + wg_rows, al = a_lo(s) + wg_rows;
-      const uint32_t bh = b_hi(s), bl = b_lo(s);
+      const uint32_t ah = a_hi(s) + a_off, al = a_lo(s) + a_off;
+      const uint32_t bh = b_hi(s) + b_off, bl = b_lo(s) + b_off;
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll

@@ -35,9 +35,21 @@ Kernels (CUDA C++, ``csrc/lifted.cu``):
   N = 8192, d = 128).  A bf16 operand keeps the first port's FMA row walk
   (``lifted_fwd_kernel``);
 * ``lifted_bwd`` (K5) replaces ``_bwd_kernel``: the recompute VJP.  The TPU
-  ran it twice, a straight and a transposed pass; here one launch computes
-  both, so a backward is one K5 launch.  Any d: a depth past 1024 is walked
-  in chunks of 1024 columns;
+  ran it twice, a straight and a transposed pass; here one tile walk forms
+  both.  An f32 operand runs both products (the distance tile, then C E) on
+  the tensor cores through 3xTF32 (``lifted_bwd_tc``): the same split of
+  the operand as K4, C split in the kernel, and E^T split by
+  :func:`tf32_split_t` (TF32 ``wgmma`` has no transposed form, so C E reads
+  E^T's rows), zero-padded to whole 128-row chunks and 64-column tiles.  A
+  CTA owns 64 rows, a range of column tiles and a chunk of 128 gradient
+  columns (:func:`bwd_grid` picks ranges and chunks); each chunk recomputes
+  the distance tile over the whole depth.  With several ranges their
+  partial G and row sums go through [S, N, d] and [S, N] buffers allocated
+  here to a second launch that adds them in ascending order; with one, the
+  tile walk writes the gradient.  Its bound on an H100: 4 N^2 d products
+  at the 3xTF32 rate, 18 f32 operations and up to 2 exponentials a pair
+  (0.258 ms at N = 8192, d = 128).  A bf16 operand keeps the first port's
+  FMA row walk (``lifted_bwd_kernel``, any d: chunks of 1024 columns);
 * ``lifted_fwd_tri`` (K6, ``ops/kernels/lifted_tri.py``) replaces the
   bounded triangular forward, taken with ``bounded=True``.
 
@@ -62,7 +74,8 @@ stats therefore differ from the JAX package's by up to bf16 rounding of the
 distances; the tests hold bf16 to f32 within 5e-2.  With ``precision="f32"``
 (the default, and the trainer's) both are f32 throughout and agree to f32
 summation-order error (1e-4 in the tests); ``chip_smoke.py`` holds K4's
-3xTF32 products on the card to its plain version at that tolerance.
+and K5's 3xTF32 products on the card to their plain versions at that
+tolerance (K5's scaled by its largest gradient entry and by d / 128).
 
 The gradient, with C_ij = g_fp_i softmax^pos_ij pos_ij
 - g_cn_i softmax^neg_ij neg_ij:  grad_i = 2 sum_j (C_ij + C_ji) (e_i - e_j).
@@ -91,9 +104,14 @@ _FWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
 _TF32_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                   + [ctypes.c_void_p] * 4 + [ctypes.c_float]
                   + [ctypes.c_void_p] * 5)
-_BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+_BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                  + [ctypes.c_void_p] * 8 + [ctypes.c_float]
                  + [ctypes.c_void_p] * 2)
+_BWD_TF32_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] * 8 + [ctypes.c_float]
+                      + [ctypes.c_void_p] * 4)
+# f32 K5's geometry: 64-column tiles, 128 gradient columns a CTA
+BWD_TILE, BWD_CHUNK = 64, 128
 # the bits an f32 keeps in TF32: sign, exponent and the top 10 mantissa
 # bits (0xFFFFE000 as an int32); half the step of the last one
 _TF32_MASK = -(1 << 13)
@@ -172,6 +190,28 @@ def tf32_split(x: torch.Tensor):
     return hi, x - hi
 
 
+def tf32_split_t(x: torch.Tensor, rows: int, cols: int):
+    """(hi^T, lo^T) [rows, cols] of an f32 [N, d] tensor: the TF32 split of
+    x^T zero-padded past d rows and N columns, so hi^T + lo^T equals x^T bit
+    for bit and every padded entry is 0 (TF32 products read it as such)."""
+    xt = x.new_zeros(rows, cols)
+    xt[:x.shape[1], :x.shape[0]] = x.T
+    return tf32_split(xt)
+
+
+def bwd_grid(n: int, d: int, sms: int):
+    """(column ranges, depth chunks) of the f32 K5 for N rows of depth d on
+    a card with ``sms`` SMs (one CTA an SM): a CTA per 64-row block, range
+    and 128-column chunk; the ranges bring the CTAs close to the SM count
+    without passing it (1 where the row blocks and chunks alone fill the
+    card), reduced so that no range is empty."""
+    tiles = -(-n // BWD_TILE)
+    chunks = -(-d // BWD_CHUNK)
+    split = max(1, min(tiles, sms // (tiles * chunks)))
+    per = -(-tiles // split)
+    return -(-tiles // per), chunks
+
+
 def fwd_split(n: int, sms: int) -> int:
     """Column ranges of the f32 K4 for N rows on a card with ``sms`` SMs
     (one CTA an SM): its 64-row blocks times the ranges come close to the
@@ -226,20 +266,37 @@ def _row_stats(n: int, device, *stats):
 
 def lifted_bwd_kernel(ops: Operands, fp, cn, g_fp, g_cn,
                       margin: float) -> torch.Tensor:
-    """Launch K5 on the operands' CUDA device, on the current stream.  Same
-    return as :func:`lifted_bwd_plain`."""
+    """Launch K5 on the operands' CUDA device, on the current stream: the
+    3xTF32 tile walk (and, with several column ranges, its combine) for an
+    f32 operand, the FMA row walk for a bf16 one.  Same return as
+    :func:`lifted_bwd_plain`."""
     opd = ops.opd
     n, d = check_operands(ops, "lifted_bwd_kernel")
     fp, cn, g_fp, g_cn = _row_stats(n, opd.device, fp, cn, g_fp, g_cn)
-    fn = bind("lifted", "lifted_bwd", _BWD_ARGTYPES)
     grad = torch.empty(n, d, dtype=torch.float32, device=opd.device)
+    side = (ops.sq.data_ptr(), ops.sq_pen.data_ptr(), ops.labels.data_ptr(),
+            ops.valid.data_ptr(), fp.data_ptr(), cn.data_ptr(),
+            g_fp.data_ptr(), g_cn.data_ptr(), float(margin))
     with torch.cuda.device(opd.device):
-        rc = fn(opd.data_ptr(), int(opd.dtype == torch.bfloat16), n, d,
-                ops.sq.data_ptr(), ops.sq_pen.data_ptr(),
-                ops.labels.data_ptr(), ops.valid.data_ptr(),
-                fp.data_ptr(), cn.data_ptr(), g_fp.data_ptr(),
-                g_cn.data_ptr(), float(margin), grad.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if opd.dtype == torch.bfloat16:
+            fn = bind("lifted", "lifted_bwd", _BWD_ARGTYPES)
+            rc = fn(opd.data_ptr(), n, d, *side, grad.data_ptr(), stream)
+        else:
+            hi, lo = tf32_split(pad_depth(opd, 4))
+            ranges, chunks = bwd_grid(n, d, sm_count(opd.device))
+            hi_t, lo_t = tf32_split_t(opd, chunks * BWD_CHUNK,
+                                      -(-n // BWD_TILE) * BWD_TILE)
+            # the ranges' partial sums, read only with more than one range
+            partial = torch.empty(ranges * n * d if ranges > 1 else 0,
+                                  dtype=torch.float32, device=opd.device)
+            rowsum = torch.empty(ranges * n, dtype=torch.float32,
+                                 device=opd.device)
+            fn = bind("lifted", "lifted_bwd_tf32", _BWD_TF32_ARGTYPES)
+            rc = fn(hi.data_ptr(), lo.data_ptr(), hi_t.data_ptr(),
+                    lo_t.data_ptr(), opd.data_ptr(), n, d, hi.shape[1],
+                    ranges, *side, partial.data_ptr(), rowsum.data_ptr(),
+                    grad.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"lifted_bwd launch failed: CUDA error {rc}")
     LAUNCHES["lifted_bwd"] += 1

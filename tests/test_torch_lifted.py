@@ -5,10 +5,11 @@ inputs.  On a CPU tensor the port runs its plain PyTorch versions; the CUDA
 kernels themselves are checked against those versions on the card by
 chip_smoke.py.
 
-The f32 row forward runs its products on the card's tensor cores through
-3xTF32; here its split (``tf32_split``), a 3xTF32 model of its products and
-a model of its column split and combine are held to the JAX kernel and to
-the plain version.
+The f32 row forward (K4) and recompute backward (K5) run their products on
+the card's tensor cores through 3xTF32; here their splits (``tf32_split``,
+``tf32_split_t``), 3xTF32 models of their products, models of their column
+split and combine, and their grid choosers are held to the JAX kernels and
+to the plain versions.
 
 Tolerances: f32 stats and losses 1e-4 (summation order of the distance
 products and of the exponential sums differs between XLA and PyTorch);
@@ -31,8 +32,9 @@ from multimodal_similarity_tpu_torch.ops.kernels import (
 from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
     POS_INF, Operands, pad_depth, prep_operands)
 from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
-    NEG_INF, _lse, _masks, fwd_split, lifted_bwd, lifted_bwd_plain,
-    lifted_fwd, lifted_fwd_plain, tf32_split)
+    BWD_CHUNK, BWD_TILE, NEG_INF, _lse, _masks, bwd_grid, fwd_split,
+    lifted_bwd, lifted_bwd_plain, lifted_fwd, lifted_fwd_plain, tf32_split,
+    tf32_split_t)
 from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
     lifted_fwd_tri, tri_block)
 from multimodal_similarity_tpu_torch.ops.losses import lifted_loss
@@ -483,3 +485,180 @@ def test_backward_past_1024_columns_matches_jax(rng):
     got = lifted_bwd_plain(ops, fp, cn, _t(g_fp), _t(g_cn), MARGIN)
     assert got.shape == (24, 1536)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-5)
+
+
+def _coef_from_inner(ops: Operands, inner, fp, cn, g_fp, g_cn, margin):
+    """C [N, N] of lifted_coefficients with the given inner products in
+    place of the exact ones (row i's stats, column j's penalised norm)."""
+    dist = torch.clamp((ops.sq[:, None] + ops.sq_pen[None, :]) - 2.0 * inner,
+                       min=0.0)
+    same, pos = _masks(ops)
+    v_pos = dist - (1.0 - ops.valid)[None, :] * POS_INF
+    soft_pos = torch.where(pos, torch.exp(v_pos - fp[:, None]),
+                           torch.zeros_like(dist))
+    soft_neg = torch.where(
+        same, torch.zeros_like(dist),
+        torch.exp((margin - dist) - cn[:, None]) * ops.valid[None, :])
+    return g_fp[:, None] * soft_pos - g_cn[:, None] * soft_neg
+
+
+def _product(a, b, products):
+    """a @ b^T as the card forms it: "3xtf32" (hi lo + lo hi + hi hi, lo
+    read as TF32), "tf32" (hi hi alone), "exact" (float64), all rounded to
+    f32 at the end; or "f32" (a plain f32 product)."""
+    if products == "f32":
+        return a @ b.T
+    if products == "exact":
+        return (a.double() @ b.double().T).float()
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    ah, bh = ah.double(), bh.double()
+    out = ah @ bh.T
+    if products == "3xtf32":
+        out = ah @ _tf32(bl).double().T + _tf32(al).double() @ bh.T + out
+    return out.float()
+
+
+def _bwd_model(ops: Operands, fp, cn, g_fp, g_cn, margin, ranges=1,
+               products="3xtf32"):
+    """The card's f32 K5 in plain PyTorch: S = the tile products, C = C_ij
+    + C_ji from S (both directions read the same S, as the card does), per
+    range of whole 64-column tiles and per 128-column chunk of the depth G
+    = C E (split as well: C hi E lo + C lo E hi + C hi E hi) and the range's
+    row sums of C, in f32; ranges added in ascending order; grad = 2
+    (rowsum e - G)."""
+    x = ops.opd
+    n, d = x.shape
+    inner = _product(x, x, products)
+    c = (_coef_from_inner(ops, inner, fp, cn, g_fp, g_cn, margin)
+         + _coef_from_inner(ops, inner.T, fp, cn, g_fp, g_cn, margin).T)
+    tiles = -(-n // BWD_TILE)
+    per = -(-tiles // ranges)
+    g = rs = None
+    for c0 in range(0, n, per * BWD_TILE):
+        cols = slice(c0, min(n, c0 + per * BWD_TILE))
+        part = torch.cat([_product(c[:, cols], x[cols, k0:k0 + BWD_CHUNK].T,
+                                   products)
+                          for k0 in range(0, d, BWD_CHUNK)], dim=1)
+        part_rs = c[:, cols].sum(1)
+        g = part if g is None else g + part
+        rs = part_rs if rs is None else rs + part_rs
+    return 2.0 * (rs[:, None] * x - g)
+
+
+def _bwd_case(rng, case):
+    """(emb, labels, valid, block) of a K5 model case: three 64-column
+    tiles (so three column ranges) at N=150, unit rows or unit rows x 3 as
+    chip_smoke.py's cases (at N=150, d=24 clustered rows of norm 6 give
+    distances near 80, whose f32 rounding alone moves single gradient
+    entries past the tolerance, the plain version's too)."""
+    if case == "no_valid_negative":
+        return (*_no_negative_case(rng), 16)
+    if case == "deep_unit":   # three 128-column chunks of the depth
+        emb, labels = _clustered(rng, n=40, dim=300, normed=True)
+        return emb, labels, (rng.rand(40) > 0.1).astype(np.float32), 16
+    emb, labels = _clustered(rng, n=150, dim=20, normed=True)
+    valid = np.ones(150, np.float32)
+    if case == "ragged_valid":
+        valid = (rng.rand(150) > 0.2).astype(np.float32)
+    elif case == "unnormalised_x3":
+        emb = emb * 3.0
+    return emb, labels, valid, 64
+
+
+@pytest.mark.parametrize("case", ["clustered", "unnormalised_x3",
+                                  "no_valid_negative", "ragged_valid",
+                                  "deep_unit"])
+def test_3xtf32_backward_keeps_jax_parity(rng, case):
+    """The card's f32 K5 modelled in float64 products (both of them 3xTF32,
+    C split too, the depth in 128-column chunks, the column ranges the
+    chooser gives on 132 SMs added in ascending order) against the JAX
+    package's VJP through its K5 (interpret mode), with arbitrary
+    cotangents: the parity claim of the design, shown without the card.
+    Plain TF32 (hi hi alone in both products) is further off."""
+    emb, labels, valid, block = _bwd_case(rng, case)
+    n, d = emb.shape
+    g_fp = rng.randn(n).astype(np.float32)
+    g_cn = rng.randn(n).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jax_fused_lifted(
+        x, jnp.asarray(labels), jnp.asarray(valid), MARGIN, block, "f32",
+        False)[:2], jnp.asarray(emb))
+    want = np.asarray(vjp((jnp.asarray(g_fp), jnp.asarray(g_cn)))[0])
+    ops = prep_operands(_t(emb), _t(labels), _t(valid), "f32")
+    fp, cn, _ = lifted_fwd_plain(ops, MARGIN)
+    ranges, chunks = bwd_grid(n, d, 132)
+    assert chunks == -(-d // BWD_CHUNK)
+    stats = (fp, cn, _t(g_fp), _t(g_cn), MARGIN)
+    got = _bwd_model(ops, *stats, ranges=ranges)
+    assert got.shape == (n, d) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-5)
+    exact = _bwd_model(ops, *stats, ranges=ranges, products="exact")
+    plain = _bwd_model(ops, *stats, ranges=ranges, products="tf32")
+    err3 = float((got - exact).abs().max())
+    err1 = float((plain - exact).abs().max())
+    assert err3 * 100 < err1
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (45, 90), (64, 128), (130, 7)])
+def test_tf32_split_t(rng, n, d):
+    """hi^T + lo^T equals x^T bit for bit, hi^T is TF32, and the padding
+    to whole 128-row chunks and 64-column tiles is zeros."""
+    x = _t((rng.randn(n, d) * 3.0).astype(np.float32))
+    rows, cols = -(-d // BWD_CHUNK) * BWD_CHUNK, -(-n // BWD_TILE) * BWD_TILE
+    hi_t, lo_t = tf32_split_t(x, rows, cols)
+    assert hi_t.shape == lo_t.shape == (rows, cols)
+    assert torch.equal(hi_t[:d, :n] + lo_t[:d, :n], x.T)
+    hi, lo = tf32_split(x)
+    assert torch.equal(hi_t[:d, :n], hi.T) and torch.equal(lo_t[:d, :n], lo.T)
+    for t in (hi_t, lo_t):
+        assert not t[d:].any() and not t[:, n:].any()
+        assert not torch.signbit(t[d:]).any()
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (16, 128, (1, 1)), (300, 128, (5, 1)), (512, 128, (8, 1)),
+    (1000, 128, (8, 1)), (8192, 128, (1, 1)), (16384, 128, (1, 1)),
+    (512, 300, (4, 3)), (1000, 1536, (1, 12)), (1000, 2048, (1, 16))])
+def test_bwd_grid_table(n, d, want):
+    assert bwd_grid(n, d, 132) == want
+
+
+@pytest.mark.parametrize("sms", [16, 132])
+def test_bwd_grid_ranges_fill_without_passing(sms):
+    """No range is empty, and row blocks times chunks times ranges stay
+    within the SM count unless one range is all there is."""
+    for n in range(1, 20000, 97):
+        for d in (24, 128, 300, 2048):
+            tiles = -(-n // 64)
+            ranges, chunks = bwd_grid(n, d, sms)
+            per = -(-tiles // ranges)
+            assert chunks * 128 >= d > (chunks - 1) * 128
+            assert 1 <= ranges <= tiles and (ranges - 1) * per < tiles
+            assert -(-tiles // per) == ranges
+            assert ranges == 1 or tiles * chunks * ranges <= sms
+
+
+@pytest.mark.parametrize("ranges", [1, 2, 4])
+def test_bwd_split_and_combine(rng, ranges):
+    """The f32 K5's ranges and chunks (f32 products, row sums and G per
+    range, added in ascending order) equal the plain K5 within 1e-6 of the
+    gradient's scale, with a range whose columns are all invalid (64-127,
+    the second of 4 ranges) and rows with no valid negative (label 7)."""
+    n = 200
+    labels = np.full(n, 7)
+    labels[64:128] = 9
+    labels[150:170] = 7
+    valid = np.ones(n, np.float32)
+    valid[64:128] = 0.0
+    emb = rng.randn(n, 140).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    ops = prep_operands(_t(emb), _t(labels), _t(valid), "f32")
+    fp, cn, _ = lifted_fwd_plain(ops, MARGIN)
+    g_fp = _t(rng.rand(n).astype(np.float32))
+    g_cn = _t(rng.rand(n).astype(np.float32))
+    want = lifted_bwd_plain(ops, fp, cn, g_fp, g_cn, MARGIN)
+    got = _bwd_model(ops, fp, cn, g_fp, g_cn, MARGIN, ranges=ranges,
+                     products="f32")
+    scale = float(want.abs().max())
+    assert scale > 0 and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
