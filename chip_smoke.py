@@ -29,20 +29,23 @@ Phases, each fatal on failure (no error is caught):
    algo="tri", "row" and "auto" (loss, stats and gradient bit-equal), the
    no-grad stats through both kernels, launch counts; then the mining-call
    time of each entry point per ``algo``;
-6. K7 (``sqdist``) against its plain version at three shapes, duplicate
-   rows included; kernel, plain, library and bound times; the public
-   ``sqdist`` as its path, with its launch count;
-7. lifted kernels: K4 (``lifted_fwd``), K5 (``lifted_bwd``; both f32 on
-   3xTF32 tensor cores, bf16 on FMA) and K6 (``lifted_fwd_tri``) against
-   their plain PyTorch versions on the card, at the trainer's shape (N=512,
-   d=128) in f32 and bf16, unnormalised inputs for K4/K5, ragged N and d
-   with a valid mask and 64-bit labels, an f32 depth TMA needs padded
-   (d=90), inputs exact in TF32, rows with no valid negative, N=8192 and
-   N=16384 with d=128, K5 after both forwards and at d=1536 and 2048 (12
-   and 16 chunks of its 128 gradient columns), and the gradient through
+6. K7 (``sqdist``, f32 on 3xTF32 tensor cores) against its plain version
+   at three shapes and a ragged one TMA needs padded (777x501x90),
+   duplicate rows included; kernel, plain, library and bound times; the
+   public ``sqdist`` at the three shapes as its path, with its launch
+   count;
+7. lifted kernels: K4 (``lifted_fwd``), K5 (``lifted_bwd``) and K6
+   (``lifted_fwd_tri``; all three f32 on 3xTF32 tensor cores, bf16 on FMA)
+   against their plain PyTorch versions on the card, at the trainer's
+   shape (N=512, d=128) in f32 and bf16, unnormalised inputs for K4/K5,
+   ragged N and d with a valid mask and 64-bit labels, f32 depths TMA
+   needs padded (d=90, bounded and not), inputs exact in TF32, rows with
+   no valid negative, N=8192 and N=16384 with d=128, K5 after both
+   forwards and at d=1536 (bounded, after K4 and K6) and 2048 (12 and 16
+   chunks of its 128 gradient columns), and the gradient through
    ``lifted_loss_fused`` against dense autograd (bounded and not); kernel,
    plain, library and bound times, K4's, K5's and K6's launches apart, and
-   K5 bit-identical from call to call;
+   K5 and K6 bit-identical from call to call;
 8. trainer: the port's batch-hard trainer, ConvRTSN at full width (3 TSN
    segments of 8x8x1536 resnet maps, n_C=20, emb_dim=128, class-balanced
    batch 512, event budget 1000, 3 sessions per batch, Adam eps=0.1) on a
@@ -634,6 +637,8 @@ def sqdist_bound(n, m, d):
 
 
 SQDIST_SHAPES = ((70, 50, 24), (1000, 777, 100), (8192, 8192, 128))
+# checked beside them: ragged N and M at a depth TMA needs padded
+SQDIST_CHECKS = ((777, 501, 90),) + SQDIST_SHAPES
 
 
 def sqdist_operands(n, m, d, seed):
@@ -651,18 +656,19 @@ def sqdist_operands(n, m, d, seed):
 
 
 def sqdist_phase():
-    """K7 against its plain version at SQDIST_SHAPES (within 1e-4: f32
-    summation order over unit-norm rows; never negative; duplicate rows at
-    distance under 1e-5), timed at the largest with the library product;
-    then the path: the public ``sqdist`` at every shape, counts set to 0
-    just before.  Returns (timing row, max_abs_err, launches)."""
+    """K7 against its plain version at SQDIST_CHECKS (within 1e-4: f32
+    summation order and 3xTF32 products over unit-norm rows; never
+    negative; duplicate rows at distance under 1e-5), timed at the largest
+    with the library product; then the path: the public ``sqdist`` at
+    every shape of SQDIST_SHAPES, counts set to 0 just before.  Returns
+    (timing row, max_abs_err, launches)."""
     import torch
     from multimodal_similarity_tpu_torch.ops.kernels import (
         LAUNCHES, reset_launch_counts, sqdist)
     from multimodal_similarity_tpu_torch.ops.kernels.distance import (
         sqdist_kernel, sqdist_plain)
     worst = 0.0
-    for n, m, d in SQDIST_SHAPES:
+    for n, m, d in SQDIST_CHECKS:
         a, b, dup = sqdist_operands(n, m, d, seed=n + m + d)
         k = sqdist_kernel(a, b)
         p = sqdist_plain(a, b)
@@ -955,20 +961,24 @@ def pass_times(call, keys, calls=20):
 
 
 def k6_combine_cost(ops):
-    """K6's two launches apart (the tile walk and the ascending-order
-    reduce of its partials)."""
+    """f32 K6's two launches apart (the tile walk, which splits its operand
+    itself, and the ascending-order combine of its partials)."""
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        sm_count as device_sms)
     from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
-        lifted_fwd_tri_kernel)
-    per = pass_times(lambda: lifted_fwd_tri_kernel(ops, MARGIN),
-                     ("lifted_tri_kernel", "lifted_tri_reduce"))
-    n = ops.opd.shape[0]
+        lifted_fwd_tri_kernel, tri_cols)
+    keys = ("lifted_tri_tc", "lifted_tri_combine")
+    per = pass_times(lambda: lifted_fwd_tri_kernel(ops, MARGIN), keys)
+    n, d = ops.opd.shape
+    cols = tri_cols(n, device_sms(ops.opd.device))
     if per:
-        print(f"[lifted] K6 at N={n}: tile walk {per['lifted_tri_kernel']:.5f}"
-              f" ms, combine {per['lifted_tri_reduce']:.5f} ms per call "
+        print(f"[lifted] K6 f32 at N={n} d={d} (64 x {cols} work items): "
+              f"tile walk {per[keys[0]]:.5f} ms, combine {per[keys[1]]:.5f} "
+              f"ms, both {per[keys[0]] + per[keys[1]]:.5f} ms per call "
               "(torch.profiler device time)", flush=True)
     else:
-        print(f"[lifted] K6 at N={n}: combine cost not measured (no device "
-              "time in the profiler trace)", flush=True)
+        print(f"[lifted] K6 f32 at N={n} d={d}: launches not timed apart (no "
+              "device time in the profiler trace)", flush=True)
 
 
 def k4_combine_cost(ops):
@@ -1014,18 +1024,22 @@ def k5_launch_cost(ops):
               "device time in the profiler trace)", flush=True)
 
 
-def k5_deterministic(ops):
-    """Two calls of K5 on the same inputs give the same bits (no float
-    atomics: each range's partial written once, added in a fixed order)."""
+def deterministic(ops, kname, tag):
+    """Two calls of a lifted kernel on the same inputs give the same bits
+    (no float atomics: each partial written once, added in a fixed
+    order)."""
     import torch
-    call = lifted_calls(ops)["lifted_bwd"][0]
+    call = lifted_calls(ops)[kname][0]
     first, second = call(), call()
+    if isinstance(first, torch.Tensor):
+        first, second = (first,), (second,)
     torch.cuda.synchronize()
     n, d = ops.opd.shape
-    if not torch.equal(first, second):
-        fail(f"K5 at N={n} d={d}: two calls differ in "
-             f"{int((first != second).sum())} entries")
-    print(f"[lifted] K5 {ops.opd.dtype} at N={n} d={d}: two calls "
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            fail(f"{tag} at N={n} d={d}: two calls differ in "
+                 f"{int((a != b).sum())} entries")
+    print(f"[lifted] {tag} {ops.opd.dtype} at N={n} d={d}: two calls "
           "bit-identical", flush=True)
 
 
@@ -1073,7 +1087,8 @@ def lifted_kernel_phase(sfu):
             k6_combine_cost(ops)
             k4_combine_cost(ops)
             k5_launch_cost(ops)
-            k5_deterministic(ops)
+            deterministic(ops, "lifted_bwd", "K5")
+            deterministic(ops, "lifted_fwd_tri", "K6")
     emb, labels, valid = make_case(512, 128, "float", gen)
     check_lifted("unnormalised-x3", emb * 3.0, labels, valid, "f32",
                  bounded=False)
@@ -1087,6 +1102,8 @@ def lifted_kernel_phase(sfu):
                                    label_offset=2 ** 36)
     check_lifted("ragged-d90-unnormalised", emb * 3.0, labels, valid, "f32",
                  bounded=False)
+    # f32 K6 at the same padded depth on unit rows, ragged N, a valid mask
+    check_lifted("ragged-d90-unit", emb, labels, valid, "f32")
     # exact in TF32 and f32: the distances carry no error, only the
     # exponentials do
     check_lifted("exact-tf32", *make_case(512, 128, "tf32", gen,
@@ -1103,21 +1120,24 @@ def lifted_kernel_phase(sfu):
     k6_combine_cost(ops)
     k4_combine_cost(ops)
     k5_launch_cost(ops)
-    k5_deterministic(ops)
+    deterministic(ops, "lifted_bwd", "K5")
+    deterministic(ops, "lifted_fwd_tri", "K6")
     del ops
     torch.cuda.empty_cache()
     ops, _ = check_lifted("large-n16384", *make_case(
-        16384, 128, "float", gen, n_classes=64), "f32", bounded=False)
-    time_lifted("large-n16384", ops, "f32", sfu,
-                kernels=("lifted_fwd", "lifted_bwd"))
+        16384, 128, "float", gen, n_classes=64), "f32")
+    time_lifted("large-n16384", ops, "f32", sfu)
+    k6_combine_cost(ops)
     k4_combine_cost(ops)
     k5_launch_cost(ops)
     del ops
     torch.cuda.empty_cache()
-    # K5 over 12 and 16 chunks of 128 gradient columns, after K4
+    # K5 over 12 and 16 chunks of 128 gradient columns, after K4 (and K6
+    # at d=1536: the f32 K6 over 48 k-slices)
     for d in (1536, 2048):
         ops, _ = check_lifted(f"deep-d{d}", *make_case(
-            1000, d, "float", gen, invalid_frac=0.1), "f32", bounded=False)
+            1000, d, "float", gen, invalid_frac=0.1), "f32",
+            bounded=d == 1536)
         time_lifted(f"deep-d{d}", ops, "f32", sfu, kernels=("lifted_bwd",))
         k5_launch_cost(ops)
     for bounded in (True, False):

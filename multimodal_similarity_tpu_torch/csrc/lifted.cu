@@ -9,8 +9,10 @@
 //   + lifted_bwd_combine           straight and the transposed pass
 //   lifted_bwd_kernel (K5, bf16)   (via _lifted_bwd_pallas :227, called
 //                                  twice at :340-345)
-//   lifted_tri_kernel (K6)      -> lifted_tri.py:93 _tri_lifted_kernel
-//   + lifted_tri_reduce            (via lifted_fwd_tri :120)
+//   lifted_tri_tc (K6, f32)     -> lifted_tri.py:93 _tri_lifted_kernel
+//   + lifted_tri_combine           (via lifted_fwd_tri :120)
+//   lifted_tri_kernel (K6, bf16)
+//   + lifted_tri_reduce
 //
 // Per pair (row i, column j) of the same [N, d] embedding matrix:
 //   dist  = max(sq[i] + sq_pen[j] - 2 <e_i, e_j>, 0)    (sq_pen: +1e30 on
@@ -117,7 +119,30 @@
 // is walked in chunks of 1024 columns, each recomputing the tiles and C.
 //
 // K6 (bounded triangular forward, l2-normalised inputs: dist <= 4, so the
-// plain sums of exp cannot overflow and need no max tracking).  One CTA per
+// plain sums of exp cannot overflow and need no max tracking).
+//   K6, f32 (lifted_tri_tc + lifted_tri_combine): the products on the
+// tensor cores through 3xTF32, the operand split into hi and lo by the
+// kernel itself (csrc/wgmma_split.cuh: each TMA-loaded f32 k-slice is
+// split in shared memory, so the wrapper makes no split buffers and runs
+// no split launch).  Persistent CTAs walk work items of 64 rows by BN = 64
+// columns (32 while 64 x 64 items would not fill the SMs: N = 512 gives
+// 72 items of 32 columns) over the upper triangle, in three roles (MMA
+// warpgroup with the row side, column warpgroup, producer warp;
+// lifted_tri_tc's note).  Each pair takes one exponential,
+//   e = exp(eq ? dist : margin - dist),  P = eq && i != j ? e : 1,
+//   Ng = eq ? 0 : e,
+// where the FMA kernel below takes two.  Partials are [3][ceil(N / BN)][N]:
+// slot cb of row i holds i's sums over column block cb (the row side of
+// item (ti, cb)), slot ti R of column j its sums over row block ti (the
+// column side, R = 64 / BN), each entry written once; lifted_tri_combine
+// adds a row's slots in ascending column order.  Bound on an H100 (SXM,
+// 700 W): N^2 d products at the 3xTF32 rate, about 13 f32 operations and
+// one exponential a visited pair: 0.067 ms at N = 8192, d = 128, nearly
+// all products; the split's shared-memory passes and the per-item chain
+// of loads, products and epilogue are what the design has to hide
+// (scripts/k6_probe.py times them apart).
+//   K6, bf16 (lifted_tri_kernel + lifted_tri_reduce): the first port's FMA
+// design.  One CTA per
 // upper-triangle tile pair (ti <= tj) of B x B; it builds the shared tiles
 //   P  = exp(same_label && i != j ? dist : 0),  Ng = same_label ? 0 :
 //   exp(margin - dist),  nm = same_label ? 0 : 1   (dist unpenalised, real
@@ -132,19 +157,18 @@
 // run to run.  B = 32 while the 64-row walk would leave SMs idle (N = 512:
 // 136 CTAs on 132 SMs), else B = 64; the wrapper chooses and allocates.
 //
-// Precision.  f32 K4 and K5 are 3xTF32 (above; K5 splits C into hi and lo
-// too); K6 and bf16 K4/K5 form products of the operand's values with f32
-// FMA (bf16 values are exact in f32).  Every epilogue (distance, masks, exp,
+// Precision.  f32 K4, K5 and K6 are 3xTF32 (above; K5 splits C into hi
+// and lo too, K6 splits its operand in the kernel); bf16 K4/K5/K6 form
+// products of the operand's values with f32 FMA (bf16 values are exact in
+// f32).  Every epilogue (distance, masks, exp,
 // the coefficient matrix C) runs in f32; the TPU ran the distance epilogue
 // in bf16 and rounded C to bf16 for its MXU.
 //
-// K6 on an H100 (SXM, 700 W).  At the trainer's shape (N = 512, d = 128,
-// f32) it needs half of K4's products and about N^2 / 2 exponentials; inputs
-// and outputs are a few hundred KB.  That is a few microseconds or less at
-// the f32 FMA, SFU or HBM rate, so it is bound by latency: a serial chain of
-// tile loads, barriers and FMA steps per CTA, and how many SMs the grid
-// occupies; 32-row tiles give 136 CTAs.  At N = 8192 the FMA work
-// dominates; its tensor-core redesign is later work.
+// K6 at the trainer's shape (N = 512, d = 128, f32) needs half of K4's
+// products and about N^2 / 2 exponentials; inputs and outputs are a few
+// hundred KB: well under a microsecond at the 3xTF32, SFU or HBM rate, so
+// latency bounds it (one item's chain of loads, split, products and
+// epilogue, then the combine launch).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -155,6 +179,7 @@
 #include <initializer_list>
 
 #include "tile.cuh"
+#include "wgmma_split.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace {
@@ -1102,6 +1127,338 @@ lifted_tri_reduce(const float* __restrict__ partial, int n, int n_tiles,
   nc_out[i] = s[2];
 }
 
+// ------------------------------------------- K6, f32 on the tensor cores ----
+
+// lifted_tri_tc: persistent CTAs over work items of TRI_ROWS = 64 rows by
+// BN = 64 or 32 columns of the upper triangle (TriWalk), in three roles,
+// as K3's batch_hard_tri_tc.  The column warpgroup splits each k-slice of
+// the f32 operand in place (msim::SplitRing::split); one MMA warpgroup
+// issues the 3xTF32 products of the split slices, then runs the row side
+// on the accumulator fragment: one exponential a
+// pair, e = exp(eq ? dist : margin - dist), P = eq && i != j ? e : 1, Ng =
+// eq ? 0 : e, summed over the columns weighted by valid[j]; off the
+// diagonal it also stores s = eq ? P : -e (the sign bit marks a negative,
+// -0 included) to one of two shared tiles.  The column warpgroup, once it
+// has split the next item's slices, reduces that tile along its columns,
+// weighted by valid[i] (128 / BN threads a column, each over a run of
+// rows, merged in ascending order), while the MMA warpgroup goes on to the
+// next item's products: the split and the column side run beside the
+// MMA warpgroup's products and row side.  One producer warp
+// keeps the TMA loads in flight.  Each item's side data (norm, valid,
+// label of its rows and columns) is loaded an item ahead.
+constexpr int TRI_ROWS = msim::WG_BOX;
+constexpr int TRI_THREADS = 256 + 32;
+constexpr int TRI_STAGES = 4;
+
+template <int BN>
+struct TriTcSmem {
+  static constexpr int PITCH = BN + 8;   // floats: conflict-free float2 stores
+  static constexpr int TPC = 128 / BN;   // column-side threads a column
+  float tile[2][TRI_ROWS][PITCH];        // s of the off-diagonal items
+  float vrow[2][TRI_ROWS];               // valid[i] of each tile's rows
+  float2 row_info[TRI_ROWS];             // (sq, valid) of the item's rows
+  float2 col_info[BN];                   // ... and of its columns
+  long long row_lab[TRI_ROWS], col_lab[BN];
+  float colpart[2][3][TPC - 1][BN];      // the column side's later parts
+  uint64_t tile_full[2], tile_empty[2];
+};
+
+template <int BN>
+constexpr int tri_tc_smem() {
+  return msim::SplitRing<TRI_ROWS, BN, TRI_STAGES>::BYTES +
+         sizeof(TriTcSmem<BN>) + 1024;
+}
+
+// The upper-triangle work items in row-major order, from item `first` in
+// steps of `step`: row block ti (64 rows) takes the column blocks cb = ti
+// r .. n_cb - 1 of 64 / r columns, so an item starts at or right of its
+// rows' diagonal block.
+struct TriWalk {
+  int n_cb, r, ti, rem;   // rem: the item's offset in row block ti
+
+  __device__ TriWalk(int n_cb_, int r_, int first)
+      : n_cb(n_cb_), r(r_), ti(0), rem(first) {
+    settle();
+  }
+  __device__ void settle() {
+    while (ti * r < n_cb && rem >= n_cb - ti * r) {
+      rem -= n_cb - ti * r;
+      ++ti;
+    }
+  }
+  __device__ bool done() const { return ti * r >= n_cb; }
+  __device__ int cb() const { return ti * r + rem; }
+  __device__ void advance(int step) {
+    rem += step;
+    settle();
+  }
+};
+
+// entry `idx` of the side data: (sq, valid) and the label; zeros past n
+__device__ __forceinline__ void load_tri_side(
+    const float* __restrict__ sq, const float* __restrict__ valid,
+    const long long* __restrict__ labels, int idx, int n, float2& f,
+    long long& lab) {
+  if (idx < n) {
+    f = make_float2(sq[idx], valid[idx]);
+    lab = labels[idx];
+  } else {
+    f = make_float2(0.f, 0.f);
+    lab = 0;
+  }
+}
+
+// The column side of off-diagonal item (ti, cb), the od-th of the CTA, by
+// column thread t: column c of the tile over rows part RP .. part RP + RP
+// - 1, ascending, the parts merged in ascending order into slot ti R of
+// column cb BN + c.
+template <int BN>
+__device__ __forceinline__ void tri_column_side(TriTcSmem<BN>& sh, int od,
+                                                int ti, int cb, int t, int n,
+                                                float* __restrict__ partial) {
+  constexpr int R = TRI_ROWS / BN;
+  constexpr int TPC = TriTcSmem<BN>::TPC;
+  constexpr int RP = TRI_ROWS / TPC;
+  const int c = t % BN, part = t / BN;
+  const int b = od & 1;
+  msim::mbar_wait(msim::smem_u32(&sh.tile_full[b]), (od >> 1) & 1);
+  float cp = 0.f, cq = 0.f, cc = 0.f;
+#pragma unroll 8
+  for (int r = part * RP; r < (part + 1) * RP; ++r) {
+    const float s = sh.tile[b][r][c];
+    const float v = sh.vrow[b][r];
+    const bool neg = __float_as_uint(s) >> 31;
+    cp += (neg ? 1.f : s) * v;
+    cq += (neg ? -s : 0.f) * v;
+    cc += neg ? v : 0.f;
+  }
+  msim::mbar_arrive(msim::smem_u32(&sh.tile_empty[b]));
+  if (part > 0) {
+    sh.colpart[b][0][part - 1][c] = cp;
+    sh.colpart[b][1][part - 1][c] = cq;
+    sh.colpart[b][2][part - 1][c] = cc;
+  }
+  msim::bar_sync(2, 128);
+  const int j = cb * BN + c;
+  if (part == 0 && j < n) {
+#pragma unroll
+    for (int p = 0; p < TPC - 1; ++p) {
+      cp += sh.colpart[b][0][p][c];
+      cq += sh.colpart[b][1][p][c];
+      cc += sh.colpart[b][2][p][c];
+    }
+    const size_t plane = (size_t)((n + BN - 1) / BN) * n;
+    const size_t at = (size_t)(ti * R) * n + j;
+    partial[at] = cp;
+    partial[plane + at] = cq;
+    partial[2 * plane + at] = cc;
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(TRI_THREADS, 1)
+lifted_tri_tc(const __grid_constant__ CUtensorMap map_a,
+              const __grid_constant__ CUtensorMap map_b, int n, int d4,
+              const float* __restrict__ sq,
+              const long long* __restrict__ labels,
+              const float* __restrict__ valid, float margin,
+              float* __restrict__ partial) {
+  constexpr int R = TRI_ROWS / BN;
+  using Ring = msim::SplitRing<TRI_ROWS, BN, TRI_STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = msim::align_1024(smem_raw);
+  const Ring ring{smem, msim::smem_u32(smem)};
+  TriTcSmem<BN>& sh = *reinterpret_cast<TriTcSmem<BN>*>(smem + Ring::BYTES);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      msim::mbar_init(msim::smem_u32(&sh.tile_full[b]), 128);
+      msim::mbar_init(msim::smem_u32(&sh.tile_empty[b]), 128);
+    }
+    ring.init();   // ends with the barrier-init fence
+  }
+  __syncthreads();
+
+  const int k_slices = (d4 + msim::TF32_BK - 1) / msim::TF32_BK;
+  const int n_cb = (n + BN - 1) / BN;
+  const size_t plane = (size_t)n_cb * n;   // partial is [3][n_cb][n]
+
+  if (threadIdx.x >= 256) {   // the producer warp: one thread loads
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (TriWalk w(n_cb, R, blockIdx.x); !w.done(); w.advance(gridDim.x))
+        ring.load(&map_a, &map_b, it, w.ti * TRI_ROWS, w.cb() * BN, n, n,
+                  k_slices);
+    }
+    return;
+  }
+
+  if (threadIdx.x >= 128) {
+    // ---- column warpgroup: splits each item's k-slices for the MMA
+    // warpgroup, then runs the column side of the item before it (whose
+    // row side the MMA warpgroup runs meanwhile); the diagonal's row side
+    // covers both ways
+    const int t = threadIdx.x - 128;
+    int it = 0, od = 0;   // ring slices split, off-diagonal items done
+    int pend_ti = -1, pend_cb = 0;   // the item whose column side waits
+    for (TriWalk w(n_cb, R, blockIdx.x); !w.done(); w.advance(gridDim.x)) {
+      ring.split(it, k_slices, t);
+      if (pend_ti >= 0) tri_column_side<BN>(sh, od++, pend_ti, pend_cb, t, n,
+                                            partial);
+      pend_ti = w.cb() / R != w.ti ? w.ti : -1;
+      pend_cb = w.cb();
+    }
+    if (pend_ti >= 0) tri_column_side<BN>(sh, od, pend_ti, pend_cb, t, n,
+                                          partial);
+    return;
+  }
+
+  // ---- MMA warpgroup: the split and the products, then the row side
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, q = lane & 3;
+  TriWalk w(n_cb, R, blockIdx.x);
+  // thread t < 64 carries row t's side data, 64 <= t < 64 + BN column
+  // t - 64's, an item ahead
+  float2 side = make_float2(0.f, 0.f);
+  long long side_lab = 0;
+  if (!w.done()) {
+    if (t < TRI_ROWS)
+      load_tri_side(sq, valid, labels, w.ti * TRI_ROWS + t, n, side,
+                    side_lab);
+    else if (t < TRI_ROWS + BN)
+      load_tri_side(sq, valid, labels, w.cb() * BN + t - TRI_ROWS, n, side,
+                    side_lab);
+  }
+  int it = 0, od = 0;
+  while (!w.done()) {
+    const int ti = w.ti, cb = w.cb();
+    const int row0 = ti * TRI_ROWS, col0 = cb * BN;
+    const bool off = cb / R != ti;   // uniform over the CTA
+
+    float acc[BN / 2];
+    ring.product_split(acc, it, k_slices);
+
+    // the last item's row side is done with the side data
+    msim::bar_sync(1, 128);
+    if (t < TRI_ROWS) {
+      sh.row_info[t] = side;
+      sh.row_lab[t] = side_lab;
+    } else if (t < TRI_ROWS + BN) {
+      sh.col_info[t - TRI_ROWS] = side;
+      sh.col_lab[t - TRI_ROWS] = side_lab;
+    }
+    w.advance(gridDim.x);
+    if (!w.done()) {
+      if (t < TRI_ROWS)
+        load_tri_side(sq, valid, labels, w.ti * TRI_ROWS + t, n, side,
+                      side_lab);
+      else if (t < TRI_ROWS + BN)
+        load_tri_side(sq, valid, labels, w.cb() * BN + t - TRI_ROWS, n,
+                      side, side_lab);
+    }
+    msim::bar_sync(1, 128);
+
+    // the column side has released this buffer's last tile (passes at once
+    // for the first two)
+    const int b = od & 1;
+    if (off)
+      msim::mbar_wait(msim::smem_u32(&sh.tile_empty[b]), ((od >> 1) & 1) ^ 1);
+    // row side: this thread's two fragment rows over its columns (wgmma's
+    // D: element 4 g + 2 h + c at row 16 warp + lane / 4 + 8 h, column
+    // 8 g + 2 q + c), without branches: a column past n weighs 0, a row
+    // past n is never stored
+    int rr[2], ia[2];
+    float sq_i[2], v_i[2], rp[2], rn[2], rc[2];
+    long long l_i[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rr[h] = 16 * warp + (lane >> 2) + 8 * h;
+      ia[h] = row0 + rr[h];
+      const float2 ri = sh.row_info[rr[h]];
+      sq_i[h] = ri.x;
+      v_i[h] = ri.y;
+      l_i[h] = sh.row_lab[rr[h]];
+      rp[h] = rn[h] = rc[h] = 0.f;
+    }
+#pragma unroll
+    for (int g = 0; g < BN / 8; ++g) {
+      float sv[2][2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * g + 2 * q + c;
+        const float2 cj = sh.col_info[col];
+        const long long l_j = sh.col_lab[col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // (sq[i] + sq[j]) - 2 acc, one rounding; symmetric in i and j
+          const float dist =
+              fmaxf(__fmaf_rn(-2.f, acc[4 * g + 2 * h + c], sq_i[h] + cj.x),
+                    0.f);
+          const bool eq = l_i[h] == l_j;
+          // one exponential a pair, by the SFU (__expf, a few 1e-7
+          // relative; exact at 0)
+          const float e = __expf(eq ? dist : margin - dist);
+          const float p = (eq && ia[h] != col0 + col) ? e : 1.f;
+          rp[h] += p * cj.y;
+          rn[h] += (eq ? 0.f : e) * cj.y;
+          rc[h] += eq ? 0.f : cj.y;
+          sv[h][c] = eq ? p : -e;
+        }
+      }
+      if (off)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(&sh.tile[b][rr[h]][8 * g + 2 * q]) =
+              make_float2(sv[h][0], sv[h][1]);
+    }
+    if (off) {
+      if (q == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) sh.vrow[b][rr[h]] = v_i[h];
+      msim::mbar_arrive(msim::smem_u32(&sh.tile_full[b]));
+      ++od;
+    }
+    // ... summed over the quad of lanes that share the rows; rows i's sums
+    // over column block cb go to slot cb of row i
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        rp[h] += __shfl_xor_sync(0xffffffffu, rp[h], o);
+        rn[h] += __shfl_xor_sync(0xffffffffu, rn[h], o);
+        rc[h] += __shfl_xor_sync(0xffffffffu, rc[h], o);
+      }
+      if (q == 0 && ia[h] < n) {
+        const size_t at = (size_t)cb * n + ia[h];
+        partial[at] = rp[h];
+        partial[plane + at] = rn[h];
+        partial[2 * plane + at] = rc[h];
+      }
+    }
+  }
+}
+
+// row i's sums from partial[.][0..n_cb - 1][i] in ascending column order:
+// the column side's slots left of its diagonal block (every r-th), then
+// the row side's from it on; fp = log(max(sum, 1e-30)) as the FMA K6
+__global__ void __launch_bounds__(THREADS)
+lifted_tri_combine(const float* __restrict__ partial, int n, int n_cb,
+                   int r, float* __restrict__ fp_out,
+                   float* __restrict__ cn_out, float* __restrict__ nc_out) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const size_t plane = (size_t)n_cb * n;
+  const int first = (i / TRI_ROWS) * r;
+  float s[3] = {0.f, 0.f, 0.f};
+  for (int b = 0; b < first; b += r)
+#pragma unroll
+    for (int x = 0; x < 3; ++x) s[x] += partial[x * plane + (size_t)b * n + i];
+  for (int b = first; b < n_cb; ++b)
+#pragma unroll
+    for (int x = 0; x < 3; ++x) s[x] += partial[x * plane + (size_t)b * n + i];
+  fp_out[i] = logf(fmaxf(s[0], 1e-30f));
+  cn_out[i] = logf(fmaxf(s[1], 1e-30f));
+  nc_out[i] = s[2];
+}
+
 // 32-row CTAs once they alone fill every SM; 8-row CTAs below that, so a
 // small batch still spreads over the card
 bool wide_rows(int n) {
@@ -1217,6 +1574,36 @@ void launch_tri(const void* emb, int n, int d, const float* sq,
       partial, n, n_tiles, B, fp, cn, nc);
 }
 
+template <int BN>
+int launch_tri_tc(const float* emb, int n, int d4, const float* sq,
+                  const long long* labels, const float* valid, float margin,
+                  float* partial, float* fp, float* cn, float* nc,
+                  cudaStream_t s) {
+  using Ring = msim::SplitRing<TRI_ROWS, BN, TRI_STAGES>;
+  CUtensorMap map_a, map_b;
+  int rc = msim::make_tensor_map_f32(&map_a, emb, n, d4);
+  if (rc == 0)
+    rc = msim::make_tensor_map_f32_rows(&map_b, emb, n, d4, Ring::B_BOX);
+  if (rc != 0) return rc;
+  constexpr int smem = tri_tc_smem<BN>();
+  cudaFuncSetAttribute(lifted_tri_tc<BN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // persistent: one CTA an SM, or one per work item
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  constexpr int R = TRI_ROWS / BN;
+  const int n_cb = (n + BN - 1) / BN;
+  const int t = (n + TRI_ROWS - 1) / TRI_ROWS;
+  const long long items = (long long)t * n_cb - (long long)R * t * (t - 1) / 2;
+  lifted_tri_tc<BN><<<items < sms ? (int)items : sms, TRI_THREADS, smem,
+                      s>>>(map_a, map_b, n, d4, sq, labels, valid, margin,
+                           partial);
+  lifted_tri_combine<<<(n + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      partial, n, n_cb, R, fp, cn, nc);
+  return 0;
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Pointers are device pointers of
@@ -1318,31 +1705,50 @@ extern "C" int lifted_bwd_tf32(const float* hi, const float* lo,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6: fp, cn, nc [n] f32 through the partials buffer `partial`, at least
-// 3 * T * T * block floats with T = ceil(n / block); block is 32 or 64.
-extern "C" int lifted_fwd_tri(const void* emb, int emb_is_bf16, int n,
-                              int d, int block, const float* sq,
-                              const long long* labels, const float* valid,
-                              float margin, float* partial, float* fp,
-                              float* cn, float* nc, void* stream) {
+// K6 for a bf16 emb [n, d] (an f32 one takes lifted_fwd_tri_tf32): fp,
+// cn, nc [n] f32 through the partials buffer `partial`, at least 3 * T * T
+// * block floats with T = ceil(n / block); block is 32 or 64.
+extern "C" int lifted_fwd_tri(const void* emb, int n, int d, int block,
+                              const float* sq, const long long* labels,
+                              const float* valid, float margin,
+                              float* partial, float* fp, float* cn,
+                              float* nc, void* stream) {
   if (n <= 0) return 0;
   if (block != 32 && block != 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (emb_is_bf16) {
-    if (block == 64)
-      launch_tri<__nv_bfloat16, 4>(emb, n, d, sq, labels, valid, margin,
-                                   partial, fp, cn, nc, s);
-    else
-      launch_tri<__nv_bfloat16, 2>(emb, n, d, sq, labels, valid, margin,
-                                   partial, fp, cn, nc, s);
-  } else {
-    if (block == 64)
-      launch_tri<float, 4>(emb, n, d, sq, labels, valid, margin, partial,
-                           fp, cn, nc, s);
-    else
-      launch_tri<float, 2>(emb, n, d, sq, labels, valid, margin, partial,
-                           fp, cn, nc, s);
-  }
+  if (block == 64)
+    launch_tri<__nv_bfloat16, 4>(emb, n, d, sq, labels, valid, margin,
+                                 partial, fp, cn, nc, s);
+  else
+    launch_tri<__nv_bfloat16, 2>(emb, n, d, sq, labels, valid, margin,
+                                 partial, fp, cn, nc, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 for an f32 emb [n, d4] on the tensor cores (d4 a multiple of 4, base
+// 16-byte aligned; the split into hi and lo happens in the kernel): work
+// items of 64 rows by `cols` (64 or 32) columns, through the partials
+// buffer `partial`, at least 3 * ceil(n / cols) * n floats.  Two
+// launches: the tile walk, then the ascending-order combine.  Returns as
+// lifted_fwd, or msim::ENCODE_ERROR (+ the CUresult) when a tensor map
+// cannot be built.
+extern "C" int lifted_fwd_tri_tf32(const float* emb, int n, int d4, int cols,
+                                   const float* sq, const long long* labels,
+                                   const float* valid, float margin,
+                                   float* partial, float* fp, float* cn,
+                                   float* nc, void* stream) {
+  if (n <= 0) return 0;
+  if (d4 <= 0 || d4 % 4 != 0 || (cols != 32 && cols != 64) ||
+      reinterpret_cast<uintptr_t>(emb) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc =
+      cols == 64
+          ? launch_tri_tc<64>(emb, n, d4, sq, labels, valid, margin, partial,
+                              fp, cn, nc, s)
+          : launch_tri_tc<32>(emb, n, d4, sq, labels, valid, margin, partial,
+                              fp, cn, nc, s);
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,11 +5,12 @@ inputs.  On a CPU tensor the port runs its plain PyTorch versions; the CUDA
 kernels themselves are checked against those versions on the card by
 chip_smoke.py.
 
-The f32 row forward (K4) and recompute backward (K5) run their products on
-the card's tensor cores through 3xTF32; here their splits (``tf32_split``,
-``tf32_split_t``), 3xTF32 models of their products, models of their column
-split and combine, and their grid choosers are held to the JAX kernels and
-to the plain versions.
+The f32 row forward (K4), recompute backward (K5) and triangular forward
+(K6) run their products on the card's tensor cores through 3xTF32; here
+their splits (``tf32_split``, ``tf32_split_t``), 3xTF32 models of their
+products, models of their column split or triangular walk and combine, and
+their grid choosers are held to the JAX kernels and to the plain
+versions.
 
 Tolerances: f32 stats and losses 1e-4 (summation order of the distance
 products and of the exponential sums differs between XLA and PyTorch);
@@ -36,7 +37,7 @@ from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
     lifted_bwd, lifted_bwd_plain, lifted_fwd, lifted_fwd_plain, tf32_split,
     tf32_split_t)
 from multimodal_similarity_tpu_torch.ops.kernels.lifted_tri import (
-    lifted_fwd_tri, tri_block)
+    TC_ROWS, lifted_fwd_tri, lifted_fwd_tri_plain, tri_block, tri_cols)
 from multimodal_similarity_tpu_torch.ops.losses import lifted_loss
 
 MARGIN = 0.5
@@ -662,3 +663,149 @@ def test_bwd_split_and_combine(rng, ranges):
     scale = float(want.abs().max())
     assert scale > 0 and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-6 * scale
+
+
+def _tri_walk(n: int, cols: int):
+    """The f32 K6's work items in the kernel's order (TriWalk): row block
+    ti of 64 rows takes the column blocks cb of `cols` columns from its
+    diagonal block on."""
+    r = TC_ROWS // cols
+    return [(ti, cb) for ti in range(-(-n // TC_ROWS))
+            for cb in range(ti * r, -(-n // cols))]
+
+
+def _tri_tc_model(ops: Operands, margin: float, cols: int,
+                  products: str = "3xtf32"):
+    """The card's f32 K6 in plain PyTorch: <e_i, e_j> as the tensor cores
+    form them (_product), one exponential a pair (e = exp(eq ? dist :
+    margin - dist), P = eq && i != j ? e : 1, Ng = eq ? 0 : e), per work
+    item the row side weighted by valid[j] into slot cb of its rows and,
+    off the diagonal, the column side weighted by valid[i] into slot ti r
+    of its columns ([3, ceil(N / cols), N], each entry written once), then
+    each row's slots in ascending column order: the column side's left of
+    its diagonal block, the row side's from it on."""
+    x = ops.opd
+    n = x.shape[0]
+    r, n_cb = TC_ROWS // cols, -(-n // cols)
+    inner = _product(x, x, products)
+    dist = torch.clamp((ops.sq[:, None] + ops.sq[None, :]) - 2.0 * inner,
+                       min=0.0)
+    eq = ops.labels[:, None] == ops.labels[None, :]
+    eye = torch.eye(n, dtype=torch.bool)
+    e = torch.exp(torch.where(eq, dist, margin - dist))
+    vals = torch.stack([torch.where(eq & ~eye, e, torch.ones_like(e)),
+                        torch.where(eq, torch.zeros_like(e), e),
+                        (~eq).float()])
+    part = torch.full((3, n_cb, n), float("nan"))
+    writes = torch.zeros(n_cb, n, dtype=torch.int64)
+    for ti, cb in _tri_walk(n, cols):
+        rows = slice(ti * TC_ROWS, min(n, (ti + 1) * TC_ROWS))
+        cs = slice(cb * cols, min(n, (cb + 1) * cols))
+        tile = vals[:, rows, cs]
+        part[:, cb, rows] = (tile * ops.valid[cs]).sum(2)
+        writes[cb, rows] += 1
+        if cb // r != ti:
+            part[:, ti * r, cs] = (tile * ops.valid[rows, None]).sum(1)
+            writes[ti * r, cs] += 1
+    sums = torch.zeros(3, n)
+    for i in range(n):
+        first = i // TC_ROWS * r
+        for b in [*range(0, first, r), *range(first, n_cb)]:
+            assert writes[b, i] == 1
+            sums[:, i] += part[:, b, i]
+    fp, cn = (torch.log(torch.clamp(sums[k], min=1e-30)) for k in (0, 1))
+    return fp, cn, sums[2]
+
+
+def _tri_case(rng, case):
+    """(emb, labels, valid) of a K6 model case: unit rows (the bounded
+    forward's promise), N=150 over three 64-row blocks."""
+    if case == "no_valid_negative":
+        emb, labels, valid = _no_negative_case(rng)
+        return emb / np.linalg.norm(emb, axis=1, keepdims=True), labels, valid
+    emb, labels = _clustered(rng, n=150, dim=20, normed=True)
+    valid = np.ones(150, np.float32)
+    if case == "ragged_valid":
+        valid = (rng.rand(150) > 0.2).astype(np.float32)
+    return emb, labels, valid
+
+
+@pytest.mark.parametrize("cols", [32, 64])
+@pytest.mark.parametrize("case", ["clustered", "ragged_valid",
+                                  "no_valid_negative"])
+def test_3xtf32_triangular_keeps_jax_parity(rng, case, cols):
+    """The card's f32 K6 modelled in float64 products (3xTF32: the split,
+    lo read as TF32), one exponential a pair, its partials at both column
+    widths of a work item and their ascending combine, against the JAX
+    package's bounded K6 (interpret mode): fp and cn within 1e-4, nc
+    exact.  Plain TF32 products (hi hi alone) move the stats at least 20
+    times further from those of exact products (to about 1e-4)."""
+    emb, labels, valid = _tri_case(rng, case)
+    ops = prep_operands(_t(emb), _t(labels), _t(valid), "f32")
+    fp, cn, nc = _tri_tc_model(ops, MARGIN, cols)
+    jfp, jcn, jnc = jax_fused_lifted(jnp.asarray(emb), jnp.asarray(labels),
+                                     jnp.asarray(valid), MARGIN, 16, "f32",
+                                     True)
+    np.testing.assert_array_equal(nc.numpy(), np.asarray(jnc))
+    _close(fp, jfp)
+    _close(cn, jcn)
+    if case == "no_valid_negative":
+        np.testing.assert_allclose(cn[:10].numpy(),
+                                   np.log(np.float32(1e-30)), rtol=1e-6)
+    exact = _tri_tc_model(ops, MARGIN, cols, products="exact")
+    plain = _tri_tc_model(ops, MARGIN, cols, products="tf32")
+    err3 = max(float((a - b).abs().max()) for a, b in zip(
+        (fp, cn), exact[:2]))
+    err1 = max(float((a - b).abs().max()) for a, b in zip(plain[:2],
+                                                          exact[:2]))
+    assert err3 < 1e-5 and err3 * 20 < err1
+
+
+@pytest.mark.parametrize("cols", [32, 64])
+def test_triangular_walk_matches_plain(rng, cols):
+    """The walk, its one-exponential epilogue and the slot combine in f32
+    products equal the plain K6 within 1e-5, on ragged N=200 with a valid
+    mask and a fourth, partial row block."""
+    emb, labels = _clustered(rng, n=200, dim=12, normed=True)
+    valid = (rng.rand(200) > 0.2).astype(np.float32)
+    ops = prep_operands(_t(emb), _t(labels), _t(valid), "f32")
+    got = _tri_tc_model(ops, MARGIN, cols, products="f32")
+    want = lifted_fwd_tri_plain(ops, MARGIN)
+    np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+    _close(got[0], want[0], 1e-5)
+    _close(got[1], want[1], 1e-5)
+
+
+@pytest.mark.parametrize("n,sms,want", [
+    (14, 132, 32), (512, 132, 32), (960, 132, 32), (1000, 132, 64),
+    (1024, 132, 64), (8192, 132, 64), (16384, 132, 64), (512, 16, 64)])
+def test_tri_cols_table(n, sms, want):
+    assert tri_cols(n, sms) == want
+
+
+@pytest.mark.parametrize("n,cols,want", [
+    (14, 32, 1), (70, 32, 4), (512, 32, 72), (512, 64, 36),
+    (1000, 64, 136), (8192, 64, 8256), (16384, 64, 32896)])
+def test_tri_items_table(n, cols, want):
+    """Work items of the walk: the kernel's launch takes T n_cb - r T (T -
+    1) / 2 CTAs at most (T row blocks, n_cb column blocks, r = 64 /
+    cols)."""
+    t, n_cb, r = -(-n // TC_ROWS), -(-n // cols), TC_ROWS // cols
+    assert len(_tri_walk(n, cols)) == want == t * n_cb - r * t * (t - 1) // 2
+
+
+@pytest.mark.parametrize("cols", [32, 64])
+def test_triangular_walk_covers_each_pair_once(cols):
+    """Every unordered pair (i, j) of N rows lies in exactly one work item,
+    on its row side or (off the diagonal blocks) its column side, for
+    ragged N around the block edges."""
+    r = TC_ROWS // cols
+    for n in (1, 31, 64, 65, 150, 257):
+        seen = np.zeros((n, n), np.int64)
+        for ti, cb in _tri_walk(n, cols):
+            rows = slice(ti * TC_ROWS, min(n, (ti + 1) * TC_ROWS))
+            cs = slice(cb * cols, min(n, (cb + 1) * cols))
+            seen[rows, cs] += 1
+            if cb // r != ti:
+                seen[cs, rows] += 1
+        assert (seen == 1).all()
