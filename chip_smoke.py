@@ -57,7 +57,20 @@ Phases, each fatal on failure (no error is caught):
 9. the lifted trainer at the same width on the same directory: 2 epochs
    normalised (one K6 launch per step and per validation, one K5 launch per
    step, no K4), then 1 epoch with ``--no_normalized`` (K4 in place of K6),
-   with the same metric checks, and a step breakdown of each trainer.
+   with the same metric checks, and a step breakdown of each trainer
+   ending in its steady state (20 consecutive loader draws through the
+   trainer's own feed source, on a second, 40-session directory);
+10. the device feed: pinned-ring uploads of f32, bf16 and int8 batches
+   against the host rows over more batches than the ring holds, a shape
+   change and a failed copy raising in the consumer; then the fused
+   semi-hard step at bench.py's shape (1024 events, ConvRTSN emb_dim 256,
+   100 triplets) in events per second per feature type (run before 8);
+11. the semi-hard triplet trainer (``base_model``) at the width of
+   scripts/train_base_model.sh on the same directory: 2 epochs with the
+   fused device miner in f32, 1 epoch each with --bf16_features,
+   --int8_features and ``--triplet_select facenet_host``; finite losses,
+   the metric checks, no launch of any ``csrc/`` kernel, the f32 run's
+   step breakdown, and each run's steady state.
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -1145,13 +1158,15 @@ def lifted_kernel_phase(sfu):
     return main_rows, main_errs, large_rows
 
 
-def write_synthetic(root):
+def write_synthetic(root, n_sessions=10):
     from multimodal_similarity_tpu_torch.data import generate_synthetic_honda
     t0 = time.time()
-    generate_synthetic_honda(root, n_sessions=10, frames_per_session=240,
+    generate_synthetic_honda(root, n_sessions=n_sessions,
+                             frames_per_session=240,
                              modal_dims={"resnet": (8, 8, 1536)}, seed=0)
-    print(f"[trainer] synthetic Honda dir (10 sessions x 240 frames of "
-          f"8x8x1536) written in {time.time() - t0:.1f} s", flush=True)
+    print(f"[trainer] synthetic Honda dir ({n_sessions} sessions x 240 "
+          f"frames of 8x8x1536) written in {time.time() - t0:.1f} s",
+          flush=True)
 
 
 def full_width_cfg(root, name, **kw):
@@ -1171,10 +1186,11 @@ def full_width_cfg(root, name, **kw):
     return TrainConfig(**args).resolve()
 
 
-def drive_trainer(root, tag, train_fn, cfg):
+def drive_trainer(root, tag, train_fn, cfg, expect_val_loss=True):
     """One trainer run, every launch count set to 0 just before it and read
-    just after; finite losses, and the device retrieval metrics of the
-    trained model against the NumPy oracle.  Returns (result, launches,
+    just after; finite losses (a finite validation loss too, unless the
+    trainer logs none), and the device retrieval metrics of the trained
+    model against the NumPy oracle.  Returns (result, launches,
     validations, experiment, validation embeddings, labels)."""
     import numpy as np
     import torch
@@ -1198,15 +1214,15 @@ def drive_trainer(root, tag, train_fn, cfg):
             open(os.path.join(res.result_dir, "metrics.jsonl"))]
     steps = [r for r in recs if "loss" in r]
     vals = [r for r in recs if "val_mAP" in r]
-    # with a readback every step, consecutive records are a step apart
-    gaps = [b["time"] - a["time"] for a, b in zip(steps, steps[1:])]
-    for r, gap in zip(steps, [None] + gaps):
-        print(f"[{tag}] step {r['step']} loss {r['loss']:.6f} active "
-              f"{r['active_count']:.3f} step_time_s "
-              f"{'first' if gap is None else f'{gap:.4f}'}", flush=True)
+    for r in steps:
+        extra = "".join(f" {k} {r[k]:.3f}" for k in ("active_count",
+                                                     "triplet_num") if k in r)
+        print(f"[{tag}] step {r['step']} loss {r['loss']:.6f}{extra}",
+              flush=True)
     for r in vals:
-        print(f"[{tag}] step {r['step']} val_mAP {r['val_mAP']:.6f} "
-              f"val_loss {r['val_loss']:.6f}", flush=True)
+        print(f"[{tag}] step {r['step']} val_mAP {r['val_mAP']:.6f}"
+              + (f" val_loss {r['val_loss']:.6f}" if "val_loss" in r
+                 else ""), flush=True)
     print(f"[{tag}] {res.step} steps, {len(vals)} validations in "
           f"{wall:.1f} s; launches {json.dumps(launches)}", flush=True)
     if res.step < cfg.max_epochs or not steps:
@@ -1214,10 +1230,11 @@ def drive_trainer(root, tag, train_fn, cfg):
     if not all(math.isfinite(r["loss"]) for r in steps):
         fail(f"{tag}: non-finite training loss")
     if len(vals) != cfg.max_epochs or \
-            not all(math.isfinite(r["val_mAP"]) and math.isfinite(
-                r["val_loss"]) for r in vals):
-        fail(f"{tag}: {len(vals)} validations, or a non-finite val mAP or "
-             "loss")
+            not all(math.isfinite(r["val_mAP"]) for r in vals):
+        fail(f"{tag}: {len(vals)} validations, or a non-finite val mAP")
+    if expect_val_loss and not all(
+            math.isfinite(r.get("val_loss", math.nan)) for r in vals):
+        fail(f"{tag}: a validation without a finite val_loss")
 
     # outputs: the device retrieval metrics against the NumPy oracle on the
     # trained model's validation embeddings
@@ -1253,15 +1270,15 @@ def expect_launches(tag, launches, want):
           flush=True)
 
 
-def trainer_phase(root):
+def trainer_phase(root, steady_root):
     """The batch-hard trainer, then the lifted trainer normalised and not;
-    returns each kernel's launches from the run whose path takes it."""
+    returns each kernel's launches from the run whose path takes it.  The
+    step breakdowns read ``steady_root``."""
     import torch
     from multimodal_similarity_tpu_torch.ops.kernels import use_triangular
     from multimodal_similarity_tpu_torch.train.trainers import (
         base_model_batchhard, base_model_lifted)
 
-    write_synthetic(root)
     cfg = full_width_cfg(root, "smoke_convrtsn")
     res, bh, n_val, exp, emb, labels = drive_trainer(
         root, "trainer", base_model_batchhard.train, cfg)
@@ -1279,7 +1296,9 @@ def trainer_phase(root):
     # K1/K2 at the validation shape the main path gave K2, on its inputs
     check_inputs("validation-shape", emb, labels,
                  torch.ones(emb.shape[0]).cuda(), "bf16")
-    step_breakdown("trainer", exp, res, cfg, "batchhard")
+    exp = steady_experiment(steady_root, "trainer")
+    step_breakdown("trainer", exp, cfg,
+                   *balanced_parts(res, exp, cfg, "batchhard"))
 
     cfg = full_width_cfg(root, "smoke_lifted")
     res, lt, n_val, exp, emb, labels = drive_trainer(
@@ -1290,7 +1309,9 @@ def trainer_phase(root):
     # K4/K5/K6 at the validation shape the main path gave K6, on its inputs
     check_lifted("validation-shape", emb, labels,
                  torch.ones(emb.shape[0]).cuda(), "f32")
-    step_breakdown("lifted", exp, res, cfg, "lifted")
+    exp = steady_experiment(steady_root, "lifted")
+    step_breakdown("lifted", exp, cfg,
+                   *balanced_parts(res, exp, cfg, "lifted"))
 
     cfg = full_width_cfg(root, "smoke_lifted_raw", normalized=False,
                          max_epochs=1)
@@ -1307,46 +1328,385 @@ def trainer_phase(root):
             "lifted_fwd": raw["lifted_fwd"]}
 
 
-def step_breakdown(tag, exp, res, cfg, loss_kind):
-    """Where one full-width step's time goes, each part timed alone on the
-    host clock: loading a session batch, the balanced selection and gather,
-    the upload, and the device step (forward, loss kernels, backward,
-    Adam), each ending in a synchronise."""
+def balanced_parts(res, exp, cfg, loss_kind):
+    """(device keys, selection, step, the trainer's feed source) of the
+    class-balanced trainers for ``step_breakdown``."""
     import random
 
-    import numpy as np
-    import torch
     from multimodal_similarity_tpu_torch.ops.mining import (
         select_batch_balanced)
     from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
-        import make_balanced_batch_step
+        import balanced_batches, make_balanced_batch_step
+
+    def select(batch):
+        idx = select_batch_balanced(batch["labels"][:batch["num_events"]],
+                                    cfg.batch_size, rng=random.Random(0))
+        return {"events": batch["events"], "labels": batch["labels"],
+                "rows": idx}
+
+    step = make_balanced_batch_step(res.model, res.optimizer, cfg, loss_kind)
+    return (("events", "labels"), select,
+            lambda b: step(b["events"], b["labels"], cfg.learning_rate),
+            balanced_batches(exp, cfg.batch_size, random.Random(0)))
+
+
+def base_model_parts(res, exp, cfg):
+    """(device keys, selection, step, the trainer's feed source) of the
+    semi-hard trainer for ``step_breakdown`` and ``steady_step``: the
+    whole budget batch goes up; the trainer's own step runner mines."""
+    import random
+
+    import torch
+    from multimodal_similarity_tpu_torch.train.trainers.base_model import (
+        budget_batches, make_step_runner)
+
+    mine_rng = random.Random(0)
+    keys, run = make_step_runner(
+        cfg, res.model, res.optimizer, torch.device("cuda"),
+        torch.Generator(device="cuda").manual_seed(0), mine_rng)
+    return (keys, lambda batch: batch,
+            lambda b: run(b, cfg.learning_rate),
+            budget_batches(exp, cfg, mine_rng))
+
+
+STEADY_WARM, STEADY_DRAWS = 3, 20
+
+
+def steady_experiment(steady_root, tag, **kw):
+    """The session loader of ``full_width_cfg(..., **kw)`` on the larger
+    directory the steady-state windows read (8 batches an epoch, where the
+    trainers' directory gives 2: the loader's prefetch thread starts anew
+    each epoch, so 2-batch epochs would time its refill, not its pace)."""
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+    exp = HondaExperiment(full_width_cfg(steady_root, f"steady_{tag}", **kw),
+                          result_dir=os.path.join(steady_root, f"r_{tag}"))
+    exp.close()
+    return exp
+
+
+def _overlap(spans, lo, hi):
+    return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in spans)
+
+
+def steady_step(tag, cfg, device_keys, step, source):
+    """The trainer's step time at its steady state: the trainer's own feed
+    source (fresh loader batches, epoch after epoch, and its selection or
+    random miner) on the feed thread through ``device_prefetch`` with the
+    config's feature casts, its step on the main thread with a readback of
+    each step's loss (as the trainer at log_flush_every=1, and a finite
+    check).  After STEADY_WARM loader draws (the feed's fill), a window of
+    STEADY_DRAWS consecutive draws on the host clock, synchronised at both
+    ends; a draw the miner finds nothing in takes no optimizer step and
+    stays in the window.  Within the window it also sums the main thread's
+    wait for the feed, its time in the steps, and the feed thread's wait
+    for its source (the loader and the selection).  Returns those, each
+    over the window's draws, as ``step_s``, ``feed_wait_s``,
+    ``in_step_s`` and ``source_wait_s``."""
+    import torch
+    from multimodal_similarity_tpu_torch.data.device_feed import (
+        device_prefetch, feature_keys)
+
+    source_spans, wait_spans, step_spans = [], [], []
+
+    def timed(items):
+        """``items`` on the feed thread, each wait for one recorded; closed
+        with the stream."""
+        try:
+            while True:
+                t = time.perf_counter()
+                try:
+                    item = next(items)
+                except StopIteration:
+                    return
+                source_spans.append((t, time.perf_counter()))
+                yield item
+        finally:
+            items.close()
+
+    stream = device_prefetch(timed(source), "cuda", device_keys,
+                             **feature_keys(cfg))
+    steps = 0
+    try:
+        for draw in range(STEADY_WARM + STEADY_DRAWS):
+            if draw == STEADY_WARM:
+                torch.cuda.synchronize()
+                t0, steps = time.perf_counter(), 0
+            ta = time.perf_counter()
+            batch = next(stream)
+            tb = time.perf_counter()
+            aux = None if batch is None else step(batch)
+            if aux is not None:
+                if not math.isfinite(float(aux["loss"])):
+                    fail(f"{tag}: non-finite loss in the steady-state "
+                         "window")
+                steps += 1
+            wait_spans.append((ta, tb))
+            step_spans.append((tb, time.perf_counter()))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        stream.close()
+    if not steps:
+        fail(f"{tag}: no optimizer step in the steady-state window")
+    n = STEADY_DRAWS
+    out = {"step_s": (t1 - t0) / n,
+           "feed_wait_s": _overlap(wait_spans, t0, t1) / n,
+           "in_step_s": _overlap(step_spans, t0, t1) / n,
+           "source_wait_s": _overlap(source_spans, t0, t1) / n}
+    print(f"[{tag}] steady state: {n} consecutive loader draws "
+          f"({steps} optimizer steps) in {t1 - t0:.4f} s after "
+          f"{STEADY_WARM} warm-up draws; a draw (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def step_breakdown(tag, exp, cfg, device_keys, select, step, source):
+    """Where one full-width step's time goes, each part timed alone on the
+    host clock: loading a session batch; the selection; for each feature
+    type (f32, bf16, int8) staging a batch into the feed's pinned ring (the
+    row gather, plus the cast or the quantizing), once on a fresh loader
+    batch (its pages first touched) and once more on the same batch, and
+    its upload (side-stream copy to its event); the device step (ending in
+    a synchronise); and, for the record of the serial loop the feed
+    replaced, a NumPy row gather and a pageable upload of the f32 events.
+    ``steady_*`` are the trainer's steady state with the feed overlapped
+    (``steady_step``), which it returns.  ``exp`` is the steady-state
+    directory's experiment."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.data.device_feed import BatchPlacer
+
+    def load():
+        batches = exp.loader.epoch(max_batches=1)
+        try:
+            return next(batches)
+        finally:
+            batches.close()
 
     t0 = time.perf_counter()
-    batches = exp.loader.epoch(max_batches=1)
-    batch = next(batches)
-    batches.close()
+    batch = load()
     t1 = time.perf_counter()
-    idx = select_batch_balanced(batch["labels"][:batch["num_events"]],
-                                cfg.batch_size, rng=random.Random(0))
-    events = batch["events"][idx]
-    labels = batch["labels"][idx].astype(np.int64)
+    item = select(batch)
     t2 = time.perf_counter()
-    ev = torch.from_numpy(events).cuda()
-    lab = torch.from_numpy(labels).cuda()
-    torch.cuda.synchronize()
+    parts = {"load_batch_s": t1 - t0, "select_s": t2 - t1}
+    placed = {}
+    for feat, casts in (("f32", {}), ("bf16", {"bf16_keys": ("events",)}),
+                        ("int8", {"int8_keys": ("events",)})):
+        placer = BatchPlacer("cuda", device_keys, **casts)
+        placer.place(item)                   # allocates the pinned ring
+        fresh = select(load())
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        bufs, slot = placer.stage(fresh)
+        tb = time.perf_counter()
+        out, event = placer.upload(fresh, bufs, slot)
+        event.synchronize()
+        tc = time.perf_counter()
+        placer.stage(fresh)
+        td = time.perf_counter()
+        parts[f"stage_{feat}_fresh_s"] = tb - ta
+        parts[f"stage_{feat}_s"] = td - tc
+        parts[f"upload_{feat}_s"] = tc - tb
+        parts[f"upload_{feat}_bytes"] = int(sum(
+            t.numel() * t.element_size() for v in bufs.values()
+            for t in (v.values() if isinstance(v, dict) else (v,))))
+        placed[feat] = placer.receive((out, event))
+    rows = item.get("rows")
     t3 = time.perf_counter()
-    step = make_balanced_batch_step(res.model, res.optimizer, cfg, loss_kind)
-    step(ev, lab, cfg.learning_rate)
-    torch.cuda.synchronize()
+    host = batch["events"] if rows is None else batch["events"][rows]
     t4 = time.perf_counter()
-    for _ in range(3):
-        step(ev, lab, cfg.learning_rate)
+    torch.from_numpy(host).cuda()
     torch.cuda.synchronize()
     t5 = time.perf_counter()
-    parts = {"load_batch_s": t1 - t0, "select_gather_s": t2 - t1,
-             "upload_s": t3 - t2, "device_step_s": (t5 - t4) / 3,
-             "upload_bytes": int(events.nbytes)}
+    parts.update(numpy_gather_s=t4 - t3, pageable_upload_s=t5 - t4)
+    step(placed["f32"])
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    for _ in range(3):
+        step(placed["f32"])
+    torch.cuda.synchronize()
+    parts["device_step_s"] = (time.perf_counter() - t6) / 3
+    del placed
+    steady = steady_step(tag, cfg, device_keys, step, source)
+    parts.update({f"steady_{k}": v for k, v in steady.items()})
     print(f"[{tag}] step breakdown {json.dumps(parts)}", flush=True)
+    if not all(np.isfinite(v) for k, v in parts.items() if k.endswith("_s")):
+        fail(f"{tag}: step breakdown has a non-finite part")
+    return steady
+
+
+def base_model_phase(root, steady_root):
+    """The semi-hard triplet trainer at the width of
+    scripts/train_base_model.sh:5-11 (event budget 1000, 3 sessions a
+    batch, 200 triplets, 5 negatives): 2 epochs with the fused device miner
+    in f32, 1 epoch each with --bf16_features, --int8_features and the host
+    miner ``facenet_host``; finite losses, the metrics against the NumPy
+    oracle, no launch of any kernel of ``csrc/`` (none is on this path);
+    a step breakdown of the f32 run, and each run's steady state, both on
+    ``steady_root``."""
+    from multimodal_similarity_tpu_torch.ops.kernels import LAUNCHES
+    from multimodal_similarity_tpu_torch.train.trainers import base_model
+
+    runs = (("base-model", {}),
+            ("base-model-bf16", {"bf16_features": True, "max_epochs": 1}),
+            ("base-model-int8", {"int8_features": True, "max_epochs": 1}),
+            ("base-model-facenet-host", {"triplet_select": "facenet_host",
+                                         "max_epochs": 1}))
+    times = {}
+    for tag, kw in runs:
+        kw = {"triplet_select": "facenet", "triplet_per_batch": 200,
+              "num_negative": 5, **kw}
+        cfg = full_width_cfg(root, f"smoke_{tag}", **kw)
+        res, launches, _, _, _, _ = drive_trainer(
+            root, tag, base_model.train, cfg, expect_val_loss=False)
+        expect_launches(tag, launches, dict.fromkeys(LAUNCHES, 0))
+        exp = steady_experiment(steady_root, tag, **kw)
+        keys, select, step, source = base_model_parts(res, exp, cfg)
+        times[tag] = (step_breakdown(tag, exp, cfg, keys, select, step,
+                                     source) if tag == "base-model" else
+                      steady_step(tag, cfg, keys, step, source))
+        del res, step, source
+    print(f"[base-model] steady state by feature type and miner (s a "
+          f"loader draw) {json.dumps(times)}", flush=True)
+
+
+def feed_phase():
+    """The device feed on the card: the pinned ring's uploads equal the
+    host arrays once received, over more batches than the ring holds (and
+    still equal at the end, so no buffer was reused early); bf16 batches
+    within half a bf16 ulp and int8 batches within scale / 2 (plus f32
+    rounding) of the host features; a change of batch shape and a failed
+    copy raise in the consumer."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.data.device_feed import (
+        DEPTH, device_prefetch)
+
+    rng = np.random.RandomState(0)
+    src = rng.randn(160, 3, 8, 8, 1536).astype(np.float32)
+    src[:, :, :, :, 7] *= 40.0                # a hot channel
+    n_batches = 7                              # ring of DEPTH + 1 = 3
+    plan = [{"events": src, "labels": np.arange(160, dtype=np.int32),
+             "rows": rng.randint(0, 160, 128)} for _ in range(n_batches)]
+    for feat, casts in (("f32", {}), ("bf16", {"bf16_keys": ("events",)}),
+                        ("int8", {"int8_keys": ("events",)})):
+        kept = []
+        t0 = time.perf_counter()
+        for b in device_prefetch(iter(plan), "cuda", ("events", "labels"),
+                                 **casts):
+            kept.append(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        worst = 0.0
+        for b, got in zip(plan, kept):
+            want = src[b["rows"]]
+            if not np.array_equal(got["labels"].cpu().numpy(),
+                                  b["labels"][b["rows"]]):
+                fail(f"feed {feat}: labels differ after the upload")
+            if feat == "f32":
+                if not np.array_equal(got["events"].cpu().numpy(), want):
+                    fail("feed f32: upload differs from the host rows")
+                continue
+            if feat == "bf16":
+                x = got["events"].float().cpu().numpy()
+                bound = np.abs(want) * 2.0 ** -8
+            else:
+                scale = got["events"]["scale"].cpu().numpy()
+                x = got["events"]["q"].float().cpu().numpy() * scale
+                # half a step, plus the f32 roundings of x / scale and
+                # q * scale (values up to 127 scale)
+                bound = np.broadcast_to(scale * (0.5 + 1e-4), want.shape)
+            err = np.abs(x - want)
+            worst = max(worst, float((err / np.maximum(bound, 1e-30)).max()))
+            if np.any(err > bound):
+                fail(f"feed {feat}: a value beyond its rounding bound")
+        print(f"[feed] {feat}: {n_batches} batches of 128 x 3 x 8x8x1536 "
+              f"through a ring of {DEPTH + 1} pinned buffers in "
+              f"{wall:.3f} s, "
+              + ("equal to the host rows" if feat == "f32" else
+                 f"within rounding of the host rows (worst error "
+                 f"{worst:.4f} of its bound)"), flush=True)
+
+    def changing():
+        for rows in (64, 64, 32):
+            yield {"events": src, "rows": np.arange(rows)}
+
+    def raised(stream, skip):
+        """The error the feed raises in the consumer after ``skip`` good
+        batches, or None."""
+        try:
+            for _ in range(skip + 1):
+                next(stream)
+        except Exception as e:  # noqa: BLE001 — any feed error is the check
+            return e
+        finally:
+            stream.close()
+        return None
+
+    err = raised(device_prefetch(changing(), "cuda", ("events",)), 2)
+    if not isinstance(err, ValueError):
+        fail(f"feed: a change of batch shape gave {err!r}, not ValueError")
+    print(f"[feed] a change of batch shape raises ValueError: {err}"[:200],
+          flush=True)
+    bad = f"cuda:{torch.cuda.device_count()}"
+    err = raised(device_prefetch(iter(plan[:1]), bad, ("events",)), 0)
+    if err is None:
+        fail(f"feed: a copy to {bad} did not raise")
+    print(f"[feed] a failed copy (to {bad}) raises {type(err).__name__}: "
+          f"{str(err).splitlines()[0]}", flush=True)
+
+
+def fused_step_rates():
+    """The fused semi-hard step at bench.py:47-53's shape (1024 events of
+    3 x 8x8x1536, ConvRTSN emb_dim 256, 7 classes, 100 triplets, keep_prob
+    0.9) with device-resident f32, bf16 and int8 features, each from the
+    same initial weights: the first step mines triplets and its loss is
+    finite; events per second, best of two rounds of 20 steps (CUDA
+    events)."""
+    import torch
+    from multimodal_similarity_tpu_torch.data.device_feed import (
+        quantize_features)
+    from multimodal_similarity_tpu_torch.models import build_encoder
+    from multimodal_similarity_tpu_torch.train.state import build_optimizer
+    from multimodal_similarity_tpu_torch.train.steps import (
+        make_triplet_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = 1024
+    labels = torch.randint(0, 7, (n,), device="cuda", generator=gen)
+    centers = torch.randn((7, 1, 8, 8, 1536), device="cuda", generator=gen)
+    x = centers[labels] + torch.randn((n, 3, 8, 8, 1536), device="cuda",
+                                      generator=gen)
+    q, scale = quantize_features(x)
+    feats = {"f32": x, "bf16": x.to(torch.bfloat16),
+             "int8": {"q": q, "scale": scale}}
+    mask = torch.ones(n, device="cuda")
+    rates = {}
+    for feat, events in feats.items():
+        # the same initial weights for each feature type
+        model = build_encoder(
+            "convrtsn", num_seg=3, emb_dim=256, n_input=1536, n_h=8, n_w=8,
+            n_C=20, keep_prob=0.9, generator=torch.Generator().manual_seed(1),
+            dropout_generator=torch.Generator(device="cuda").manual_seed(2)
+        ).cuda()
+        step = make_triplet_train_step(
+            model, build_optimizer("ADAM", model, 0.01),
+            triplet_per_batch=100, alpha=0.2,
+            generator=torch.Generator(device="cuda").manual_seed(3))
+        aux = step(events, labels, mask, 0.01)
+        if not math.isfinite(float(aux["loss"])) or \
+                float(aux["triplet_num"]) <= 0:
+            fail(f"fused step {feat}: loss {float(aux['loss'])}, "
+                 f"{float(aux['triplet_num'])} triplets")
+        best = min(call_ms(lambda: step(events, labels, mask, 0.01),
+                           iters=20, warmup=2) for _ in range(2))
+        rates[feat] = n / (best / 1e3)
+        print(f"[fused-step] {feat}: {best:.3f} ms a step, "
+              f"{rates[feat]:.0f} events/s", flush=True)
+    del feats, x
+    torch.cuda.empty_cache()
+    return rates
 
 
 def main():
@@ -1394,10 +1754,16 @@ def main():
     errs = {**dict.fromkeys(BATCH_HARD, main_err), **lifted_errs,
             "sqdist": sq_err}
 
+    feed_phase()
+    fused_step_rates()
     scratch = os.path.join(HERE, "_build")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as root:
-        launches = trainer_phase(root)
+        steady_root = os.path.join(root, "steady")
+        write_synthetic(root)
+        write_synthetic(steady_root, n_sessions=40)
+        launches = trainer_phase(root, steady_root)
+        base_model_phase(root, steady_root)
     # a batch-hard kernel the trainer's gate did not take is counted on the
     # mining path, which runs every one of them
     for name in BATCH_HARD:

@@ -52,6 +52,12 @@ def _prefetched(items, load_one, prefetch: int):
             # surface loader failures in the training thread instead of
             # silently truncating the epoch
             _put(exc)
+        finally:
+            # an item generator (a nested loader epoch) ends on this
+            # thread, which iterated it
+            close = getattr(items, "close", None)
+            if close is not None:
+                close()
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()

@@ -3,9 +3,12 @@
 Counterparts of the JAX package's ``models/encoders.py``: the 1x1 "conv"
 embedding is a Linear over the channel axis, the LSTM is the hand-written
 TF cell (models/lstm.py), and dropout sits where the reference put it (input
-dropout on the recurrent encoders).  Inputs keep the JAX layout
-``[B, S, ...]`` with channels last.  Weights are Xavier-uniform with zero
-bias, as ``tf.contrib.layers.xavier_initializer`` in the reference.
+dropout on the recurrent encoders, plain dropout in the MLPs).  Inputs keep
+the JAX layout ``[B, S, ...]`` with channels last, and are cast to the
+weights' type on entry: bf16 or dequantized int8 features reach the same
+f32 math as flax's type promotion gives them.  Weights are Xavier-uniform
+with zero bias, as ``tf.contrib.layers.xavier_initializer`` in the
+reference.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from multimodal_similarity_tpu_torch.models.lstm import LSTM
+from multimodal_similarity_tpu_torch.models.lstm import LSTM, BiLSTM
 
 Generator = Optional[torch.Generator]
 
@@ -46,6 +49,26 @@ class Dropout(nn.Module):
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
+class TSN(nn.Module):
+    """2-layer MLP per segment, mean-pooled over segments."""
+
+    def __init__(self, n_seg: int = 3, emb_dim: int = 128, n_input: int = 8,
+                 keep_prob: float = 1.0, generator: Generator = None,
+                 dropout_generator: Generator = None):
+        super().__init__()
+        self.n_seg, self.emb_dim, self.n_input = n_seg, emb_dim, n_input
+        self.fc1 = dense(n_input, emb_dim, generator)
+        self.dropout = Dropout(1.0 - keep_prob, dropout_generator)
+        self.fc2 = dense(emb_dim, emb_dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        x = x.to(self.fc1.weight.dtype)
+        h = torch.relu(self.fc1(x.reshape(b * self.n_seg, self.n_input)))
+        h = self.fc2(self.dropout(h))
+        return h.reshape(b, self.n_seg, self.emb_dim).mean(dim=1)
+
+
 class RTSN(nn.Module):
     """Linear embed + LSTM over segments, last output."""
 
@@ -60,6 +83,7 @@ class RTSN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
+        x = x.to(self.fc1.weight.dtype)
         h = torch.relu(self.fc1(x.reshape(b * self.n_seg, self.n_input)))
         h = self.dropout(h.reshape(b, self.n_seg, self.emb_dim))
         outputs, _ = self.lstm(h)
@@ -76,7 +100,23 @@ class ConvEmbed(nn.Module):
         self.conv1x1 = dense(n_input, n_C, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.conv1x1.weight.dtype)
         return torch.relu(self.conv1x1(x)).flatten(-3)
+
+
+class ConvTSN(nn.Module):
+    """1x1 conv embed + FC, mean over segments (no dropout, as in the
+    reference)."""
+
+    def __init__(self, n_seg: int = 3, n_C: int = 20, emb_dim: int = 256,
+                 n_input: int = 1536, n_h: int = 8, n_w: int = 8,
+                 generator: Generator = None):
+        super().__init__()
+        self.embed = ConvEmbed(n_input, n_C, generator)
+        self.fc = dense(n_h * n_w * n_C, emb_dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(self.embed(x)).mean(dim=1)
 
 
 class ConvRTSN(nn.Module):
@@ -95,3 +135,57 @@ class ConvRTSN(nn.Module):
         h = self.dropout(self.embed(x))                  # [B, S, h*w*C]
         outputs, _ = self.lstm(h)
         return outputs[:, -1]
+
+
+class ConvBiRTSN(nn.Module):
+    """1x1 conv embed + bidirectional LSTM (emb_dim / 2 a direction),
+    both directions' outputs at the last step."""
+
+    def __init__(self, n_seg: int = 3, n_C: int = 20, emb_dim: int = 128,
+                 n_input: int = 1536, n_h: int = 8, n_w: int = 8,
+                 keep_prob: float = 1.0, generator: Generator = None,
+                 dropout_generator: Generator = None):
+        super().__init__()
+        self.embed = ConvEmbed(n_input, n_C, generator)
+        self.dropout = Dropout(1.0 - keep_prob, dropout_generator)
+        self.bilstm = BiLSTM(n_h * n_w * n_C, emb_dim // 2,
+                             generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bilstm(self.dropout(self.embed(x)))[:, -1]
+
+
+class ConvLSTM(nn.Module):
+    """1x1 conv embed + LSTM over whole frame sequences; the output at
+    each sequence's true last frame, ``seq_len - 1``."""
+
+    def __init__(self, max_time: int, n_C: int = 20, emb_dim: int = 128,
+                 n_input: int = 1536, n_h: int = 8, n_w: int = 8,
+                 generator: Generator = None):
+        super().__init__()
+        self.max_time = max_time
+        self.embed = ConvEmbed(n_input, n_C, generator)
+        self.lstm = LSTM(n_h * n_w * n_C, emb_dim, generator=generator)
+
+    def forward(self, x: torch.Tensor, seq_len: torch.Tensor
+                ) -> torch.Tensor:
+        outputs, _ = self.lstm(self.embed(x))            # [B, T, emb]
+        idx = (seq_len.to(torch.int64) - 1).reshape(-1, 1, 1)
+        return outputs.gather(
+            1, idx.expand(-1, 1, outputs.shape[-1]))[:, 0]
+
+
+class OutputLayer(nn.Module):
+    """2-layer FC projection head, dropout after the first layer's relu."""
+
+    def __init__(self, n_input: int, n_output: int, keep_prob: float = 1.0,
+                 generator: Generator = None,
+                 dropout_generator: Generator = None):
+        super().__init__()
+        self.fc = dense(n_input, n_output, generator)
+        self.dropout = Dropout(1.0 - keep_prob, dropout_generator)
+        self.out = dense(n_output, n_output, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.fc.weight.dtype)
+        return self.out(self.dropout(torch.relu(self.fc(x))))

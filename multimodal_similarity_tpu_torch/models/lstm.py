@@ -77,3 +77,22 @@ class LSTM(nn.Module):
             state, out = self.cell(state, x[:, t])
             outputs.append(out)
         return torch.stack(outputs, dim=1), state
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional LSTM; outputs concat([fw, bw]) aligned to the input
+    steps, as ``tf.nn.bidirectional_dynamic_rnn``: the backward output at
+    step t has consumed x[t:], so outputs[:, -1] holds the forward pass
+    after the whole sequence and the backward pass after the last frame."""
+
+    def __init__(self, input_size: int, features: int,
+                 forget_bias: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fw = LSTM(input_size, features, forget_bias, generator)
+        self.bw = LSTM(input_size, features, forget_bias, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fw, _ = self.fw(x)
+        bw, _ = self.bw(x.flip(1))
+        return torch.cat([fw, bw.flip(1)], dim=-1)

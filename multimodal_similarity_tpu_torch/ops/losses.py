@@ -1,12 +1,79 @@
-"""Batch-structured losses over a full distance matrix."""
+"""Metric-learning losses: the triplet family, and the batch-structured
+losses over a full distance matrix (the oracles of the fused kernels)."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 _POS_INF = 1e30
 _NEG_INF = -1e30
+
+
+def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ((a - b) ** 2).sum(dim=1)
+
+
+def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor,
+                 negative: torch.Tensor, alpha=0.2) -> torch.Tensor:
+    """max(|a-p|^2 - |a-n|^2 + alpha, 0), mean over the batch; ``alpha``
+    may be a scalar or a per-triplet [N] tensor."""
+    basic = _sq_dist(anchor, positive) - _sq_dist(anchor, negative) + alpha
+    return torch.clamp(basic, min=0.0).mean()
+
+
+def triplet_loss_masked(anchor: torch.Tensor, positive: torch.Tensor,
+                        negative: torch.Tensor, mask: torch.Tensor,
+                        alpha=0.2) -> torch.Tensor:
+    """Triplet loss over a fixed-size padded triplet batch: the mean over
+    the triplets whose ``mask`` is 1, and 0 when none is."""
+    basic = torch.clamp(_sq_dist(anchor, positive)
+                        - _sq_dist(anchor, negative) + alpha, min=0.0)
+    return (basic * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def weighted_triplet_loss_per_triplet(
+        anchor: torch.Tensor, positive: torch.Tensor, negative: torch.Tensor,
+        prob_pos: torch.Tensor, prob_neg: torch.Tensor,
+        alpha: float = 0.2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-triplet [N] soft 4-way weighted loss (see
+    :func:`weighted_triplet_loss`); returns (loss_vec, [N, 4] weights)."""
+
+    def hinge(anc, pos, neg, a):
+        return torch.clamp(_sq_dist(anc, pos) - _sq_dist(anc, neg) + a,
+                           min=0.0)
+
+    w1 = prob_pos * (1.0 - prob_neg)
+    w2 = (1.0 - prob_pos) * prob_neg
+    w3 = prob_pos * prob_neg
+    w4 = (1.0 - prob_pos) * (1.0 - prob_neg)
+    loss = (
+        w1 * hinge(anchor, positive, negative, alpha)
+        + w2 * hinge(anchor, negative, positive, alpha)
+        + w3 * 0.5 * (hinge(anchor, positive, anchor, -alpha * 2)
+                      + hinge(anchor, negative, anchor, -alpha * 2))
+        + w4 * 0.5 * (hinge(anchor, anchor, positive, alpha * 2)
+                      + hinge(anchor, anchor, negative, alpha * 2))
+    )
+    return loss, torch.stack([w1, w2, w3, w4], dim=1)
+
+
+def weighted_triplet_loss(anchor: torch.Tensor, positive: torch.Tensor,
+                          negative: torch.Tensor, prob_pos: torch.Tensor,
+                          prob_neg: torch.Tensor, alpha: float = 0.2
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft 4-way triplet loss weighted by pair-similarity confidences.
+
+    With p1 = P(anchor~positive), p2 = P(anchor~negative):
+      w1 = p1(1-p2) * L(A,B,C),  w2 = (1-p1)p2 * L(A,C,B),
+      w3 = p1 p2    * [L(A,B,A; -2a) + L(A,C,A; -2a)]/2,
+      w4 = (1-p1)(1-p2) * [L(A,A,B; 2a) + L(A,A,C; 2a)]/2.
+    Returns (mean loss, [N, 4] stacked weights)."""
+    loss, weights = weighted_triplet_loss_per_triplet(
+        anchor, positive, negative, prob_pos, prob_neg, alpha)
+    return loss.mean(), weights
 
 
 def _pair_masks(pids: torch.Tensor):

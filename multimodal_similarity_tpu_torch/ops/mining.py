@@ -1,11 +1,237 @@
-"""Host-side batch selection for the batch-structured losses."""
+"""Triplet mining and batch selection.
+
+Two tiers, as in the JAX package's ``ops/mining.py``:
+
+1. **Host miners** (``select_triplets_facenet``, ``select_triplets_random``,
+   ``select_batch_balanced``): copies of the JAX package's NumPy functions;
+   the same ``random.Random`` state gives the same indices.
+2. **Device miner** (``mine_semihard_triplets`` and its row-wise
+   ``..._from_embeddings``): shape-static semi-hard sampling with a
+   validity mask.  ``jax.random.categorical`` is Gumbel-max, so the port
+   draws three Gumbel arrays (anchors, positives, one per negative draw)
+   from an explicit ``torch.Generator`` and takes the first maximum, as
+   ``jnp.argmax`` does; fed the JAX draws, :func:`_mine` picks the same
+   indices.
+"""
 
 from __future__ import annotations
 
+import itertools
 import random
-from typing import List
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
+
+_NEG_INF = -1e30
+
+
+class MinedTriplets(NamedTuple):
+    """Fixed-size mined triplet batch (padded, with a validity mask)."""
+
+    anchor: torch.Tensor     # [T] int64 indices into the event batch
+    positive: torch.Tensor   # [T]
+    negative: torch.Tensor   # [T]
+    mask: torch.Tensor       # [T] float32, 1.0 = real triplet
+    active_count: torch.Tensor  # scalar: mean admissible negatives a pair
+
+
+def _draw_gumbels(num_pairs: int, n: int, num_negative: int,
+                  generator: Optional[torch.Generator], device
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Sequence[torch.Tensor]]:
+    """Standard Gumbel draws -log(-log(U)) for the anchor, positive and
+    each negative categorical over [num_pairs, n]; U in [tiny, 1) as
+    ``jax.random.gumbel`` draws it."""
+    tiny = torch.finfo(torch.float32).tiny
+
+    def one():
+        u = torch.rand((num_pairs, n), generator=generator, device=device)
+        return -torch.log(-torch.log(u.clamp_(min=tiny)))
+
+    return one(), one(), [one() for _ in range(num_negative)]
+
+
+def _categorical(gumbel: torch.Tensor, allowed: torch.Tensor,
+                 logits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """argmax(gumbel + logits) along rows, logits -1e30 where not allowed
+    (the first maximum on ties, as ``jnp.argmax``)."""
+    base = torch.zeros_like(gumbel) if logits is None else logits
+    return torch.argmax(
+        gumbel + torch.where(allowed, base, torch.full_like(base, _NEG_INF)),
+        dim=1)
+
+
+def _mine(labels: torch.Tensor, valid: Optional[torch.Tensor],
+          dist_rows: Callable[[torch.Tensor], torch.Tensor], gumbels,
+          triplet_per_batch: int, alpha: float,
+          num_negative: int) -> MinedTriplets:
+    """Semi-hard sampling from given Gumbel draws; ``dist_rows(anchors)``
+    gives the sampled anchors' [P, N] distance rows."""
+    labels = labels.reshape(-1)
+    n = labels.shape[0]
+    num_pairs = -(-triplet_per_batch // num_negative)
+    valid_b = (torch.ones(n, dtype=torch.bool, device=labels.device)
+               if valid is None else valid.reshape(-1).to(torch.bool))
+    g_anchor, g_pos, g_negs = gumbels
+
+    # per-class valid-member counts (self included) without an [N, N] mask
+    dense = torch.unique(labels, return_inverse=True)[1]
+    counts = torch.zeros(n, dtype=torch.float32, device=labels.device)
+    counts.index_add_(0, dense, valid_b.to(torch.float32))
+    class_count = counts[dense]
+    can_anchor = (labels > 0) & valid_b & (class_count >= 2)
+    anchor_logw = -torch.log(class_count)
+    anchors = _categorical(g_anchor, can_anchor.expand(num_pairs, n),
+                           anchor_logw.expand(num_pairs, n))
+
+    same_rows = labels[anchors][:, None] == labels[None, :]       # [P, N]
+    notself = anchors[:, None] != torch.arange(n, device=labels.device)
+    positives = _categorical(g_pos, same_rows & notself & valid_b)
+
+    neg_rows = dist_rows(anchors).float()                         # [P, N]
+    pos_dist = neg_rows.gather(1, positives[:, None])
+    semihard = (~same_rows & valid_b & (neg_rows - pos_dist < alpha)
+                & (pos_dist < neg_rows))
+    has_neg = semihard.any(dim=1)
+    negatives = torch.stack([_categorical(g, semihard) for g in g_negs],
+                            dim=1)                                # [P, R]
+
+    t = num_pairs * num_negative
+    mask = has_neg.repeat_interleave(num_negative)[:t].float()
+    return MinedTriplets(
+        anchor=anchors.repeat_interleave(num_negative)[:t],
+        positive=positives.repeat_interleave(num_negative)[:t],
+        negative=negatives.reshape(-1)[:t],
+        mask=mask * can_anchor.any().float(),
+        active_count=semihard.sum(dim=1).float().mean())
+
+
+def mine_semihard_triplets(dists: torch.Tensor, labels: torch.Tensor,
+                           generator: Optional[torch.Generator],
+                           triplet_per_batch: int, alpha: float = 0.2,
+                           num_negative: int = 3,
+                           valid: Optional[torch.Tensor] = None
+                           ) -> MinedTriplets:
+    """Sample semi-hard triplets on the device from an [N, N] distance
+    matrix.
+
+    ceil(T / num_negative) anchor-positive pairs with class-balanced
+    anchors (weight 1/class-count, foreground classes with >= 2 valid
+    members), a uniform same-class positive, then ``num_negative`` uniform
+    draws from each pair's semi-hard set (neg - pos < alpha and pos < neg);
+    pairs with none are masked out, and everything is when no class can
+    anchor.  ``valid`` rows are neither anchors, positives nor negatives.
+    ``generator`` (on the tensors' device) drives the draws."""
+    n = labels.reshape(-1).shape[0]
+    gumbels = _draw_gumbels(-(-triplet_per_batch // num_negative), n,
+                            num_negative, generator, dists.device)
+    return _mine(labels, valid, lambda a: dists[a], gumbels,
+                 triplet_per_batch, alpha, num_negative)
+
+
+def mine_semihard_triplets_from_embeddings(
+        embeddings: torch.Tensor, labels: torch.Tensor,
+        generator: Optional[torch.Generator], triplet_per_batch: int,
+        alpha: float = 0.2, num_negative: int = 3,
+        valid: Optional[torch.Tensor] = None,
+        metric: str = "squaredeuclidean") -> MinedTriplets:
+    """:func:`mine_semihard_triplets` with distances for the sampled anchor
+    rows only ([P, N] through ``pairwise_distance``), never [N, N]."""
+    emb = embeddings.float()
+    n = emb.shape[0]
+    gumbels = _draw_gumbels(-(-triplet_per_batch // num_negative), n,
+                            num_negative, generator, emb.device)
+    return _mine(labels, valid,
+                 lambda a: pairwise_distance(emb[a], emb, metric), gumbels,
+                 triplet_per_batch, alpha, num_negative)
+
+
+def _shuffled_classes(np_lab: np.ndarray, rng: random.Random):
+    idx_dict: dict[int, list[int]] = {}
+    for i, l in enumerate(np_lab):
+        idx_dict.setdefault(int(l), []).append(i)
+    for key in idx_dict:
+        rng.shuffle(idx_dict[key])
+    return idx_dict
+
+
+def select_triplets_facenet(lab, all_dist: np.ndarray,
+                            triplet_per_batch: int, alpha: float = 0.2,
+                            num_negative: int = 3,
+                            rng: random.Random | None = None
+                            ) -> Tuple[List[int], float]:
+    """The reference's facenet semi-hard miner, a copy of the JAX
+    package's: a flat [a, p, n, a, p, n, ...] index list and the mean count
+    of admissible negatives."""
+    rng = rng or random
+    idx_dict = _shuffled_classes(np.asarray(lab).reshape(-1), rng)
+    foreground = {k: itertools.permutations(v, 2)
+                  for k, v in idx_dict.items() if k != 0}
+
+    triplet_idx: List[int] = []
+    neg_counts: List[int] = []
+    while len(triplet_idx) < triplet_per_batch * 3:
+        keys = list(foreground.keys())
+        if not keys:
+            break
+        for key in keys:
+            try:
+                an_idx, pos_idx = next(foreground[key])
+            except StopIteration:
+                del foreground[key]
+                continue
+
+            pos_dist = all_dist[an_idx, pos_idx]
+            neg_dist = np.array(all_dist[an_idx], dtype="float64")
+            neg_dist[idx_dict[key]] = np.nan
+
+            with np.errstate(invalid="ignore"):
+                all_neg = np.where((neg_dist - pos_dist < alpha)
+                                   & (pos_dist < neg_dist))[0]
+            neg_counts.append(len(all_neg))
+
+            if len(all_neg) > 0:
+                for _ in range(min(len(all_neg), num_negative)):
+                    neg_idx = int(all_neg[rng.randrange(len(all_neg))])
+                    triplet_idx.extend([an_idx, pos_idx, neg_idx])
+                    if len(triplet_idx) >= triplet_per_batch * 3:
+                        return triplet_idx, float(np.mean(neg_counts))
+
+    if triplet_idx:
+        return triplet_idx, float(np.mean(neg_counts))
+    return [], 0.0
+
+
+def select_triplets_random(lab, triplet_per_batch: int,
+                           num_negative: int = 3,
+                           rng: random.Random | None = None) -> List[int]:
+    """The reference's random-negative miner, a copy of the JAX package's:
+    a flat [a, p, n, ...] index list (the gather happens on the device)."""
+    rng = rng or random
+    np_lab = np.asarray(lab).reshape(-1)
+    idx_dict = _shuffled_classes(np_lab, rng)
+    foreground = {k: itertools.permutations(v, 2)
+                  for k, v in idx_dict.items() if k != 0}
+
+    triplet_idx: List[int] = []
+    while len(triplet_idx) < triplet_per_batch * 3:
+        keys = list(foreground.keys())
+        if not keys:
+            break
+        for key in keys:
+            all_neg = np.where(np_lab != key)[0]
+            try:
+                an_idx, pos_idx = next(foreground[key])
+            except StopIteration:
+                del foreground[key]
+                continue
+            for _ in range(num_negative):
+                neg_idx = int(all_neg[rng.randrange(len(all_neg))])
+                triplet_idx.extend([an_idx, pos_idx, neg_idx])
+    return triplet_idx
 
 
 def select_batch_balanced(

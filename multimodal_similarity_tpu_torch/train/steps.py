@@ -1,12 +1,27 @@
-"""Embedding helpers shared by the trainers."""
+"""Train steps and embedding helpers shared by the trainers.
+
+``make_triplet_train_step`` is the JAX package's fused semi-hard step:
+an eval-mode embedding of the whole event batch (no gradient, no dropout),
+semi-hard mining on the device, then a train-mode re-forward of the
+selected triplets alone, the masked triplet loss and one optimizer step.
+``make_gathered_triplet_step`` trains on host-mined triplet indices.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from multimodal_similarity_tpu_torch.data.device_feed import (
+    dequant_features, take_features)
+from multimodal_similarity_tpu_torch.ops.losses import triplet_loss_masked
+from multimodal_similarity_tpu_torch.ops.mining import (
+    mine_semihard_triplets_from_embeddings)
+from multimodal_similarity_tpu_torch.train.state import (
+    apply_gradients, l2_regularization)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -44,3 +59,74 @@ def embed_in_chunks(embed_fn: Callable, events, device: torch.device,
             block = torch.from_numpy(np.ascontiguousarray(block))
         out.append(embed_fn(block.to(device)))
     return torch.cat(out, dim=0)
+
+
+def _triplet_update(model: nn.Module, optimizer, events, tri_idx, tri_mask,
+                    alpha: float, normalized: bool, lambda_l2: float,
+                    learning_rate: float):
+    """Train-mode forward of the [a; p; n] rows ``tri_idx`` of ``events``
+    (gathered in the feed's storage type, then dequantized), the masked
+    triplet loss (+ L2) and one optimizer step.  Returns (total, metric
+    loss) as device scalars."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    emb = model(dequant_features(take_features(events, tri_idx)))
+    if normalized:
+        emb = l2_normalize(emb)
+    t = tri_mask.shape[0]
+    metric_loss = triplet_loss_masked(emb[:t], emb[t:2 * t], emb[2 * t:],
+                                      tri_mask, alpha)
+    total = metric_loss
+    if lambda_l2:
+        total = total + lambda_l2 * l2_regularization(model)
+    total.backward()
+    apply_gradients(optimizer, learning_rate)
+    return total.detach(), metric_loss.detach()
+
+
+def make_triplet_train_step(model: nn.Module, optimizer, *,
+                            triplet_per_batch: int, alpha: float = 0.2,
+                            num_negative: int = 3,
+                            metric: str = "squaredeuclidean",
+                            normalized: bool = True, lambda_l2: float = 0.0,
+                            generator: Optional[torch.Generator] = None
+                            ) -> Callable:
+    """Fused embed -> mine -> re-forward -> triplet-loss step.
+
+    Returns step(events, labels, mask, learning_rate) -> device scalars.
+    ``events`` is a dense tensor or the int8 feed's {"q", "scale"};
+    ``generator`` (on the device) drives the mining draws."""
+    embed = make_embed_fn(model, normalized)
+
+    def step(events, labels: torch.Tensor, mask: torch.Tensor,
+             learning_rate: float):
+        mined = mine_semihard_triplets_from_embeddings(
+            embed(dequant_features(events)), labels, generator,
+            triplet_per_batch, alpha=alpha, num_negative=num_negative,
+            valid=mask, metric=metric)
+        tri_idx = torch.cat([mined.anchor, mined.positive, mined.negative])
+        total, metric_loss = _triplet_update(
+            model, optimizer, events, tri_idx, mined.mask, alpha,
+            normalized, lambda_l2, learning_rate)
+        return {"loss": total, "metric_loss": metric_loss,
+                "active_count": mined.active_count,
+                "triplet_num": mined.mask.sum()}
+
+    return step
+
+
+def make_gathered_triplet_step(model: nn.Module, optimizer, *,
+                               alpha: float = 0.2, normalized: bool = True,
+                               lambda_l2: float = 0.0) -> Callable:
+    """Step for host-mined triplets: step(events, tri_idx [3T] in [a; p;
+    n] order, tri_mask [T], learning_rate) -> device scalars."""
+
+    def step(events, tri_idx: torch.Tensor, tri_mask: torch.Tensor,
+             learning_rate: float):
+        total, metric_loss = _triplet_update(
+            model, optimizer, events, tri_idx, tri_mask, alpha, normalized,
+            lambda_l2, learning_rate)
+        return {"loss": total, "metric_loss": metric_loss,
+                "triplet_num": tri_mask.sum()}
+
+    return step

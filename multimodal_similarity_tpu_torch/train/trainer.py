@@ -30,20 +30,23 @@ def setup_experiment(cfg, timestamp: bool = True,
 
 
 def validate(embed_fn, val_feats, val_labels, device: torch.device,
-             loss_fn: Callable, chunk: int = 256):
+             loss_fn: Optional[Callable] = None, chunk: int = 256):
     """Per-epoch validation: chunked eval-mode embedding on ``device``,
-    leave-one-out retrieval metrics, and the trainer's own objective
-    ``loss_fn(emb, labels)`` over the whole validation set (no gradient, so
-    the batch-hard stats run without winner tracking and the lifted stats
-    run their forward alone).  Returns (metrics, embeddings tensor)."""
+    leave-one-out retrieval metrics, and, given ``loss_fn``, the trainer's
+    own objective ``loss_fn(emb, labels)`` over the whole validation set as
+    ``val_loss`` (no gradient, so the batch-hard stats run without winner
+    tracking and the lifted stats run their forward alone).  Returns
+    (metrics, embeddings tensor)."""
     emb = embed_in_chunks(embed_fn, val_feats, device, chunk=chunk)
     labels = np.asarray(val_labels).reshape(-1)
     mAP, mPrec, recalls = retrieval_metrics(emb, labels)
-    with torch.no_grad():
-        val_loss = loss_fn(
-            emb, torch.from_numpy(labels.astype(np.int64)).to(device))[0]
-    return {"val_mAP": mAP, "val_mPrec": mPrec,
-            "val_recall@1": recalls[1], "val_loss": float(val_loss)}, emb
+    metrics = {"val_mAP": mAP, "val_mPrec": mPrec,
+               "val_recall@1": recalls[1]}
+    if loss_fn is not None:
+        with torch.no_grad():
+            metrics["val_loss"] = float(loss_fn(
+                emb, torch.from_numpy(labels.astype(np.int64)).to(device))[0])
+    return metrics, emb
 
 
 def epoch_of_step(step: int, batch_per_epoch: int) -> int:

@@ -1,0 +1,246 @@
+"""Unimodal semi-hard triplet trainer (FaceNet-style), the reference's
+baseline (``scripts/train_base_model.sh``).
+
+Session batches of a fixed event budget from the session loader, and one
+of three miners (``--triplet_select``):
+
+* ``facenet``: the fused step (train/steps.py): an eval-mode embedding of
+  the whole budget, semi-hard mining on the device, a train-mode
+  re-forward of the mined triplets alone;
+* ``facenet_host``: the reference's host semi-hard miner on exact
+  differences of the current embeddings, then the gathered-triplet step;
+* ``random``: the reference's random-negative miner, then the
+  gathered-triplet step.
+
+The budget batch is cast or quantized (--bf16_features / --int8_features)
+and uploaded on the feed thread, two batches ahead (data/device_feed.py);
+so are the ``random`` miner's triplets, which need labels only.  The
+``facenet_host`` miner reads the embeddings of the parameters the last
+step wrote, so it runs between steps on the main thread; under
+--bf16_features it embeds the f32 rows, uploaded beside the bf16 ones, as
+the JAX trainer embeds its f32 host batch.  Per-epoch
+leave-one-out validation (no validation loss, as in the JAX trainer), the
+embedding-projector files and a checkpoint.  Single device; no CUDA kernel
+of ``csrc/`` is on this path.
+
+Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model --DATA_ROOT <dir> --triplet_select facenet ...
+(``--device cpu`` runs on the CPU; the default is ``cuda``.)
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import random
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from multimodal_similarity_tpu_torch import resolve_device
+from multimodal_similarity_tpu_torch.configs import TrainConfig
+from multimodal_similarity_tpu_torch.data.device_feed import (
+    device_prefetch, feature_keys)
+from multimodal_similarity_tpu_torch.models import build_encoder
+from multimodal_similarity_tpu_torch.ops.distances import cdist_rows
+from multimodal_similarity_tpu_torch.ops.mining import (
+    select_triplets_facenet, select_triplets_random)
+from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
+from multimodal_similarity_tpu_torch.train.state import (
+    build_optimizer, learning_rate_schedule)
+from multimodal_similarity_tpu_torch.train.steps import (
+    embed_in_chunks, make_embed_fn, make_gathered_triplet_step,
+    make_triplet_train_step)
+from multimodal_similarity_tpu_torch.train.trainer import (
+    epoch_of_step, validate)
+from multimodal_similarity_tpu_torch.train.trainers._honda import (
+    HondaExperiment)
+from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
+    import TrainResult, _check_supported
+from multimodal_similarity_tpu_torch.utils.logging import (
+    write_projector_config, write_projector_embedding)
+
+MINERS = ("facenet", "facenet_host", "random")
+
+
+def pack_triplets(idx, triplet_per_batch: int):
+    """A host miner's flat [a, p, n, ...] list as fixed-size [a; p; n]
+    indices [3T] and a mask [T] (padding rows index event 0, masked)."""
+    t = triplet_per_batch
+    tri = np.zeros(3 * t, np.int64)
+    tri_mask = np.zeros(t, np.float32)
+    m = min(len(idx) // 3, t)
+    arr = np.asarray(idx[: 3 * m], np.int64).reshape(-1, 3)
+    tri[:m], tri[t:t + m], tri[2 * t:2 * t + m] = arr.T
+    tri_mask[:m] = 1.0
+    return tri, tri_mask
+
+
+def budget_batches(exp: HondaExperiment, cfg: TrainConfig,
+                   mine_rng: random.Random):
+    """One item per loader batch, across epochs, for the feed thread: the
+    budget batch (with the random miner's triplets), or None when the
+    random miner finds none.  Under --bf16_features the host miner's f32
+    rows go up beside the bf16 ones as ``mine_events``: the JAX trainer
+    embeds the f32 host batch for that miner."""
+    while True:
+        produced = 0
+        for b in exp.loader.epoch():
+            produced += 1
+            if cfg.triplet_select == "random":
+                n = int(b["num_events"])
+                idx = select_triplets_random(
+                    b["labels"][:n], cfg.triplet_per_batch,
+                    cfg.num_negative, rng=mine_rng)
+                if not idx:
+                    yield None
+                    continue
+                b["tri"], b["tri_mask"] = pack_triplets(
+                    idx, cfg.triplet_per_batch)
+            elif cfg.triplet_select == "facenet_host" and cfg.bf16_features:
+                b["mine_events"] = b["events"]
+            yield b
+        if not produced:
+            return
+
+
+def make_step_runner(cfg: TrainConfig, model, optimizer, device,
+                     mine_gen: torch.Generator, mine_rng: random.Random):
+    """(the feed's device keys, ``run(batch, lr)``): one training step on
+    a received batch with the configured miner.  ``run`` returns the
+    step's aux, or None when the host miner finds no triplet."""
+    t_cap = cfg.triplet_per_batch
+    if cfg.triplet_select == "facenet":
+        fused = make_triplet_train_step(
+            model, optimizer, triplet_per_batch=t_cap, alpha=cfg.alpha,
+            num_negative=cfg.num_negative, metric=cfg.metric,
+            normalized=cfg.normalized, lambda_l2=cfg.lambda_l2,
+            generator=mine_gen)
+        return (("events", "labels", "mask"),
+                lambda batch, lr: fused(batch["events"], batch["labels"],
+                                        batch["mask"], lr))
+    step_fn = make_gathered_triplet_step(
+        model, optimizer, alpha=cfg.alpha, normalized=cfg.normalized,
+        lambda_l2=cfg.lambda_l2)
+    if cfg.triplet_select == "random":
+        return (("events", "tri", "tri_mask"),
+                lambda batch, lr: step_fn(batch["events"], batch["tri"],
+                                          batch["tri_mask"], lr))
+    embed_fn = make_embed_fn(model, cfg.normalized)
+
+    def mine_and_step(batch, lr):
+        """The reference's semi-hard miner on the current parameters'
+        embeddings of the f32 rows, exact differences in row chunks on the
+        device, then the gathered-triplet step."""
+        n = int(batch["num_events"])
+        rows = batch.get("mine_events", batch["events"])[:n]
+        emb = embed_in_chunks(embed_fn, rows, device)
+        dists = cdist_rows(emb, emb, cfg.metric).cpu().numpy()
+        idx, _ = select_triplets_facenet(
+            batch["labels"][:n], dists, t_cap, cfg.alpha, cfg.num_negative,
+            rng=mine_rng)
+        if not idx:
+            return None
+        tri, tri_mask = (torch.from_numpy(a).to(device)
+                         for a in pack_triplets(idx, t_cap))
+        return step_fn(batch["events"], tri, tri_mask, lr)
+
+    return ("events", "mine_events"), mine_and_step
+
+
+def train(cfg: TrainConfig, event_budget: Optional[int] = None,
+          result_dir: Optional[str] = None, device=None) -> TrainResult:
+    """Train on ``device`` (default ``cuda``; raises when no card is
+    visible and the CPU was not asked for)."""
+    if cfg.triplet_select not in MINERS:
+        raise NotImplementedError(
+            f"--triplet_select {cfg.triplet_select!r}; expected one of "
+            f"{MINERS}")
+    _check_supported(cfg)
+    if cfg.int8_features and cfg.triplet_select != "facenet":
+        raise ValueError("--int8_features requires the device-fed path "
+                         "(--triplet_select facenet); the host miners "
+                         "gather dense features")
+    device = resolve_device(device)
+    exp = HondaExperiment(cfg, event_budget=event_budget,
+                          result_dir=result_dir)
+    init_gen = torch.Generator().manual_seed(cfg.seed)
+    drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    mine_gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+    model = build_encoder(cfg.network, num_seg=cfg.num_seg,
+                          emb_dim=cfg.emb_dim, n_input=cfg.n_input,
+                          n_h=cfg.n_h, n_w=cfg.n_w, n_C=cfg.n_C,
+                          keep_prob=cfg.keep_prob, generator=init_gen,
+                          dropout_generator=drop_gen).to(device)
+    optimizer = build_optimizer(cfg.optimizer, model, cfg.learning_rate)
+    step_host = 0
+    if cfg.model_path:
+        step_host = load_checkpoint(cfg.model_path, model, optimizer)
+
+    embed_fn = make_embed_fn(model, cfg.normalized)
+    val_x = torch.from_numpy(exp.val_feats).to(device)
+    # a config-seeded stream for the host miners: the JAX trainer's draws
+    mine_rng = random.Random(cfg.seed)
+    device_keys, run = make_step_runner(cfg, model, optimizer, device,
+                                        mine_gen, mine_rng)
+
+    metrics = {}
+    stream = device_prefetch(budget_batches(exp, cfg, mine_rng), device,
+                             device_keys=device_keys, **feature_keys(cfg))
+    try:
+        epoch = epoch_of_step(step_host, exp.batch_per_epoch)
+        while epoch < cfg.max_epochs:
+            lr = learning_rate_schedule(epoch, cfg.learning_rate,
+                                        cfg.static_epochs, cfg.max_epochs)
+            step_at_epoch_start = step_host
+            for batch in itertools.islice(stream, exp.batch_per_epoch):
+                if batch is None:
+                    continue  # no random triplet in this loader draw
+                t0 = time.time()
+                aux = run(batch, lr)
+                if aux is None:
+                    continue  # the host miner found no triplet
+                step_host += 1
+                # train_time is the host's enqueue interval: the readback
+                # is deferred, so the device time shows in the flush cadence
+                exp.log_deferred(
+                    step_host, aux,
+                    {"train_time": time.time() - t0, "learning_rate": lr},
+                    echo_fn=lambda sc, e=epoch, s=step_host: (
+                        f"[{cfg.name}] epoch {e + 1} step {s} "
+                        f"loss {sc['loss']:.4f} "
+                        f"triplets {sc['triplet_num']:.0f}"))
+            exp.flush_logs()
+            if step_host == step_at_epoch_start:
+                print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
+                      "stopping")
+                break
+            metrics, val_emb = validate(embed_fn, val_x, exp.val_labels,
+                                        device)
+            exp.log(step_host, metrics,
+                    f"[{cfg.name}] epoch {epoch + 1} val mAP "
+                    f"{metrics['val_mAP']:.4f} R@1 "
+                    f"{metrics['val_recall@1']:.4f}")
+            write_projector_embedding(exp.result_dir, val_emb.cpu().numpy())
+            write_projector_config(exp.result_dir)
+            exp.ckpt.save(model, optimizer, step_host)
+            epoch = epoch_of_step(step_host, exp.batch_per_epoch)
+    finally:
+        stream.close()  # cancels the feed and loader threads
+        exp.close()
+    return TrainResult(model, optimizer, step_host, metrics, exp.result_dir)
+
+
+def main(argv=None):
+    """The trainer CLI: the JAX trainer's flags, plus ``--device`` (default
+    ``cuda``)."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", default=None)
+    args, rest = p.parse_known_args(argv)
+    train(TrainConfig.parse(rest), device=args.device)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

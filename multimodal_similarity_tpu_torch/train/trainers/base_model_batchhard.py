@@ -6,7 +6,10 @@ kernels: batch-hard ("In Defense of the Triplet Loss",
 ops/kernels/batch_hard.py) or, with ``loss_kind="lifted"``, the
 lifted-structured loss (ops/kernels/lifted.py; base_model_lifted.py).  Adam
 (eps=0.1), per-epoch leave-one-out validation and a checkpoint.  Streamed,
-single device: more than one visible GPU is not sharded.
+single device: more than one visible GPU is not sharded.  The balanced
+selection, its row gather, the --bf16_features cast or --int8_features
+quantizing and the upload run on the feed thread, two batches ahead
+(data/device_feed.py).
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard --DATA_ROOT <dir> ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -20,11 +23,12 @@ import random
 import sys
 from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
+from multimodal_similarity_tpu_torch.data.device_feed import (
+    dequant_features, device_prefetch, feature_keys)
 from multimodal_similarity_tpu_torch.models import build_encoder
 from multimodal_similarity_tpu_torch.ops.kernels import (
     batch_hard_fused, lifted_loss_fused)
@@ -55,8 +59,6 @@ def _check_supported(cfg: TrainConfig) -> None:
     unported = (
         (cfg.device_cache, "--device_cache", 8),
         (cfg.steps_per_dispatch > 1, "--steps_per_dispatch", 8),
-        (cfg.int8_features, "--int8_features", 3),
-        (cfg.bf16_features, "--bf16_features", 3),
         (cfg.multihost, "--multihost", 8),
         (cfg.model_parallel > 1, "--model_parallel", 8),
         (bool(cfg.profile_dir), "--profile_dir", 8),
@@ -95,14 +97,13 @@ def make_balanced_batch_step(model, optimizer, cfg: TrainConfig,
                              precision: Optional[str] = None):
     """step(events [B, ...], labels [B], learning_rate) -> device scalars,
     one optimizer step of the ``loss_kind`` objective over a class-balanced
-    batch."""
+    batch; ``events`` dense or the int8 feed's {"q", "scale"}."""
     loss_fn = make_loss(cfg, loss_kind, precision)
 
-    def step(events: torch.Tensor, labels: torch.Tensor,
-             learning_rate: float):
+    def step(events, labels: torch.Tensor, learning_rate: float):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        emb = model(events)
+        emb = model(dequant_features(events))
         if cfg.normalized:
             emb = l2_normalize(emb)
         loss, num_active, *_ = loss_fn(emb, labels)
@@ -115,6 +116,25 @@ def make_balanced_batch_step(model, optimizer, cfg: TrainConfig,
                 "active_count": num_active.detach()}
 
     return step
+
+
+def balanced_batches(exp: HondaExperiment, batch_size: int,
+                     sel_rng: random.Random):
+    """One item per loader batch, across epochs, for the feed thread (so
+    the draws stay in loader order): the batch with its balanced [B]
+    selection as ``rows``, or None when it has no foreground class."""
+    while True:
+        produced = 0
+        for b in exp.loader.epoch():
+            produced += 1
+            n = int(b["num_events"])
+            idx = select_batch_balanced(b["labels"][:n], batch_size,
+                                        rng=sel_rng)
+            yield (None if idx.size == 0 else
+                   {"events": b["events"], "labels": b["labels"],
+                    "rows": idx})
+        if not produced:
+            return
 
 
 def train(cfg: TrainConfig, loss_kind: str = "batchhard",
@@ -150,23 +170,10 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
     # JAX trainer's
     sel_rng = random.Random(cfg.seed)
 
-    def selected():
-        """One item per loader batch, across epochs: the balanced [B]
-        selection, or None when the batch has no foreground class."""
-        while True:
-            produced = 0
-            for b in exp.loader.epoch():
-                produced += 1
-                n = int(b["num_events"])
-                idx = select_batch_balanced(b["labels"][:n], batch_size,
-                                            rng=sel_rng)
-                yield (None if idx.size == 0
-                       else (b["events"][idx], b["labels"][idx]))
-            if not produced:
-                return
-
     metrics = {}
-    stream = selected()
+    stream = device_prefetch(balanced_batches(exp, batch_size, sel_rng),
+                             device, device_keys=("events", "labels"),
+                             **feature_keys(cfg))
     try:
         epoch = epoch_of_step(step_host, exp.batch_per_epoch)
         while epoch < cfg.max_epochs:
@@ -176,10 +183,7 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
             for batch in itertools.islice(stream, exp.batch_per_epoch):
                 if batch is None:
                     continue  # no balanced batch in this loader draw
-                events = torch.from_numpy(batch[0]).to(device)
-                labels = torch.from_numpy(
-                    batch[1].astype(np.int64)).to(device)
-                aux = step_fn(events, labels, lr)
+                aux = step_fn(batch["events"], batch["labels"], lr)
                 step_host += 1
                 exp.log_deferred(
                     step_host, aux, {"learning_rate": lr},
@@ -199,7 +203,7 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
             exp.ckpt.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
-        stream.close()  # cancels the loader's prefetch worker
+        stream.close()  # cancels the feed and loader threads
         exp.close()
     return TrainResult(model, optimizer, step_host, metrics, exp.result_dir)
 

@@ -1,5 +1,6 @@
 """Metrics logging: a JSONL stream of step records, the deferred per-step
-readback, and the embedding-projector metadata TSV."""
+readback, and the embedding-projector files (metadata and embedding TSVs,
+projector config)."""
 
 from __future__ import annotations
 
@@ -84,6 +85,31 @@ class DeferredStepLogs:
             print(f"[logging] dropped up to {n} queued step records "
                   f"after error: {e!r}", file=sys.stderr)
             self._pending = []
+
+
+def write_projector_embedding(result_dir: str, embeddings,
+                              filename: str = "embedding_val.tsv") -> str:
+    """Embedding values TSV for the TensorBoard projector."""
+    path = os.path.join(result_dir, filename)
+    with open(path, "w") as fout:
+        for row in embeddings:
+            fout.write("\t".join(f"{v:.6g}" for v in row) + "\n")
+    return path
+
+
+def write_projector_config(result_dir: str,
+                           tensor_filename: str = "embedding_val.tsv",
+                           metadata_filename: str = "metadata_val.tsv",
+                           ) -> str:
+    """projector_config.pbtxt wiring the embedding TSV to its metadata
+    (the projector's tensor_path form; no TF checkpoint variable)."""
+    path = os.path.join(result_dir, "projector_config.pbtxt")
+    with open(path, "w") as fout:
+        fout.write("embeddings {\n"
+                   f"  tensor_path: \"{tensor_filename}\"\n"
+                   f"  metadata_path: \"{metadata_filename}\"\n"
+                   "}\n")
+    return path
 
 
 def write_projector_metadata(result_dir: str, labels, sessions=None,

@@ -106,10 +106,3 @@ def test_init_is_xavier_uniform_with_zero_bias():
                           generator=torch.Generator().manual_seed(0))
     assert torch.equal(again.lstm.cell.kernel.weight,
                        tm.lstm.cell.kernel.weight)
-
-
-@pytest.mark.parametrize("network", ["tsn", "convtsn", "convbirtsn",
-                                     "convlstm"])
-def test_unported_networks_raise(network):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_encoder(network)

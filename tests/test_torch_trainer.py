@@ -138,11 +138,6 @@ def test_branch_scope_gradient_scale_matches_optax(rng):
                                    atol=1e-6, err_msg=name)
 
 
-def test_only_adam_is_ported():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        build_optimizer("RMSPROP", nn.Linear(2, 2))
-
-
 @pytest.mark.parametrize("epoch", [0, 999, 1000, 1500, 2000])
 def test_learning_rate_schedule_matches(epoch):
     assert learning_rate_schedule(epoch, 1e-2, 1000, 2000) == pytest.approx(
@@ -196,8 +191,7 @@ def test_checkpoint_round_trip_and_pruning(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,slice_no", [
-    ("device_cache", True, 8), ("int8_features", True, 3),
-    ("bf16_features", True, 3), ("multihost", True, 8),
+    ("device_cache", True, 8), ("multihost", True, 8),
     ("model_parallel", 2, 8), ("profile_dir", "p", 8),
     ("watchdog_secs", 5.0, 8)])
 def test_unported_flags_raise(tmp_path, flag, value, slice_no):
