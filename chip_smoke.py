@@ -70,7 +70,19 @@ Phases, each fatal on failure (no error is caught):
    fused device miner in f32, 1 epoch each with --bf16_features,
    --int8_features and ``--triplet_select facenet_host``; finite losses,
    the metric checks, no launch of any ``csrc/`` kernel, the f32 run's
-   step breakdown, and each run's steady state.
+   step breakdown, and each run's steady state;
+12. the CUB track at the scripts' widths on synthetic data from seed
+   12345: ``base_model_CUB`` and ``pddm_CUB`` (100 steps each on 1024-d
+   features and 312-d attributes, 100 classes x 59 images a split),
+   ``base_CUB --network inception_v2`` on 224 crops of 256 x 256 images
+   (20 steps with the semi-hard triplet loss, then 10 with ``--loss
+   batchhard``: one K1 launch a step and no other kernel), and
+   ``debug_CUB`` (2 steps); finite losses, the metrics against the NumPy
+   oracle, InceptionV2 and the triplet, n-pairs and cluster losses on the
+   card against the CPU, K1 at the path's shape (N=32, d=64, bf16) against
+   its plain version with its times, and the steady step of
+   ``base_model_CUB`` and of each ``base_CUB`` loss beside its device time
+   (profiler and CUDA events) and idle share.
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -1709,6 +1721,473 @@ def fused_step_rates():
     return rates
 
 
+# ---------------------------------------------------------------------------
+# the CUB track
+# ---------------------------------------------------------------------------
+
+CUB_SEED = 12345
+CUB_CLASSES, CUB_PER_CLASS = 100, 59        # a split of ~5,900 rows
+CUB_IMG_CLASSES, CUB_IMG_PER_CLASS = 100, 8  # 800 training images
+CUB_IMG_TEST_CLASSES, CUB_IMG_TEST_PER = 80, 4   # 320 test images
+CUB_IMG, CUB_CROP = 256, 224
+# training-mode batch norm on the card against the CPU, relative to the
+# output's scale: f32 noise of the batch variance through ~70 layers (the
+# CPU tests hold the same forward to flax at 2e-3); eval mode has no
+# batch statistics and stays within 1e-4
+CUB_TRAIN_TOL, CUB_EVAL_TOL = 2e-3, 1e-4
+
+
+def cub_images():
+    """Class-tinted images in [0, 1] from the seed: 100 classes x 8
+    training images and 80 other classes x 4 test images of 256 x 256 x 3
+    f32 (train labels 0-based, test labels 1-based, as on disk)."""
+    import numpy as np
+    rng = np.random.default_rng(CUB_SEED)
+
+    def split(n_cls, per, first):
+        tint = rng.random((n_cls, 1, 1, 3), dtype=np.float32)
+        labels = np.repeat(np.arange(n_cls), per)
+        img = rng.random((n_cls * per, CUB_IMG, CUB_IMG, 3),
+                         dtype=np.float32)
+        img *= 0.5
+        for i in range(0, len(img), 64):
+            img[i:i + 64] += 0.5 * tint[labels[i:i + 64]]
+        return img, labels + first
+
+    img, lab = split(CUB_IMG_CLASSES, CUB_IMG_PER_CLASS, 0)
+    img_te, lab_te = split(CUB_IMG_TEST_CLASSES, CUB_IMG_TEST_PER, 1)
+    return {"image_train": img, "label_train": lab, "image_test": img_te,
+            "label_test": lab_te}
+
+
+def _oracle_part(emb, labels, queries):
+    """``evaluate_simple``'s per-query loop over ``queries``: the lists of
+    AP, precision at recall 0.5 and recall@1."""
+    import numpy as np
+    from multimodal_similarity_tpu_torch.eval.metrics import (
+        precision_at_recall, recall_at_K, retrieve_one)
+    aps, precs, hits = [], [], []
+    for i in queries:
+        if labels[i] <= 0:
+            continue
+        rest = np.delete(labels, i)
+        _, order, ap = retrieve_one(emb[i], np.delete(emb, i, 0), labels[i],
+                                    rest)
+        if np.isnan(ap):
+            continue
+        aps.append(ap)
+        precs.append(precision_at_recall(rest[order], labels[i], 0.5)[0])
+        hits.append(recall_at_K(rest[order], labels[i], 1))
+    return aps, precs, hits
+
+
+class OracleChecks:
+    """The NumPy oracle (``evaluate_simple``'s per-query loop) for trained
+    models' test embeddings, run beside the rest of the phase: at 5,900
+    rows one process takes most of a minute, so each set's queries are
+    split over a pool of spawned processes (one core left to the main
+    thread) as it comes, and ``finish`` waits for them and holds the
+    device metrics to the oracle's (2e-3).  ``close`` shuts the pool down
+    (queued work cancelled, running work waited for)."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        cores = len(os.sched_getaffinity(0))
+        self.workers = max(1, min(8, cores - 1))
+        self.pool = ProcessPoolExecutor(
+            self.workers, mp_context=multiprocessing.get_context("spawn"))
+        self.pending = []
+
+    def submit(self, tag, emb, labels, dev):
+        import numpy as np
+        emb = np.array(emb, dtype=np.float64)
+        parts = np.array_split(np.arange(len(labels)), self.workers)
+        self.pending.append((tag, dev, len(labels), time.time(), [
+            self.pool.submit(_oracle_part, emb, labels, q) for q in parts]))
+
+    def finish(self):
+        import numpy as np
+        for tag, dev, n, t0, futures in self.pending:
+            outs = [f.result() for f in futures]
+            ref = [float(np.mean(sum((o[k] for o in outs), [])))
+                   for k in range(3)]
+            print(f"[{tag}] val metrics device (mAP, mPrec, R@1) "
+                  f"{dev[0]:.6f} {dev[1]:.6f} {dev[2][1]:.6f} vs NumPy "
+                  f"oracle {ref[0]:.6f} {ref[1]:.6f} {ref[2]:.6f} ({n} "
+                  f"rows, {self.workers} processes, ready "
+                  f"{time.time() - t0:.1f} s after submission)", flush=True)
+            if not np.allclose([dev[0], dev[1], dev[2][1]], ref, atol=2e-3):
+                fail(f"{tag}: device retrieval metrics disagree with the "
+                     "NumPy oracle")
+
+    def close(self):
+        self.pool.shutdown(cancel_futures=True)
+
+
+def drive_cub(root, tag, train_fn, cfg, data, embed, want_steps, want_vals,
+              oracle, **kw):
+    """One CUB trainer run, every launch count set to 0 just before it and
+    read just after: finite losses, the steps and validations asked for,
+    and the device retrieval metrics of the trained model's test-split
+    embeddings (``embed(result)``) against the trainer's last validation,
+    and (through ``oracle``, an OracleChecks) against the NumPy oracle.
+    Returns (result, launches)."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.eval.metrics import (
+        retrieval_metrics)
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+
+    reset_launch_counts()
+    t0 = time.time()
+    res = train_fn(cfg, data=data,
+                   result_dir=os.path.join(root, f"result_{tag}"), **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(LAUNCHES)
+    recs = [json.loads(line) for line in
+            open(os.path.join(res.result_dir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    vals = [r for r in recs if "val_mAP" in r]
+    print(f"[{tag}] {res.step} steps, {len(vals)} validations in "
+          f"{wall:.1f} s; losses first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f}; last validation "
+          + json.dumps({k: v for k, v in vals[-1].items() if k != "time"})
+          + f"; launches {json.dumps(launches)}", flush=True)
+    if res.step != want_steps or len(losses) != want_steps:
+        fail(f"{tag}: {res.step} steps, {len(losses)} losses, not "
+             f"{want_steps}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: a non-finite training loss")
+    if len(vals) != want_vals or not all(
+            math.isfinite(r["val_mAP"]) for r in vals):
+        fail(f"{tag}: {len(vals)} validations (not {want_vals}), or a "
+             "non-finite val mAP")
+    emb = embed(res)
+    labels = np.asarray(data["label_test"]).reshape(-1)
+    if tuple(emb.shape) != (len(labels), cfg.emb_dim) or \
+            not bool(torch.isfinite(emb).all()):
+        fail(f"{tag}: test embeddings {tuple(emb.shape)} not finite or of "
+             "the wrong shape")
+    dev = retrieval_metrics(emb, labels)
+    if abs(dev[0] - vals[-1]["val_mAP"]) > 1e-6 or \
+            abs(dev[2][1] - vals[-1]["val_recall@1"]) > 1e-6:
+        fail(f"{tag}: the trained model's val mAP / R@1 differ from the "
+             "trainer's last validation")
+    oracle.submit(tag, emb.cpu().numpy(), labels, dev)
+    return res, launches
+
+
+def step_busy_ms(step, calls=5):
+    """(device time, device operations) of one step: the summed CUDA
+    kernel and copy times of a torch.profiler trace of ``calls`` steps,
+    and their count, over the calls; fails when the trace has no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in device)
+    if not us > 0:
+        fail("step_busy_ms: no device time in the profiler trace")
+    return us / calls / 1e3, len(device) / calls
+
+
+def step_event_ms(step, calls=5, sleep_cycles=int(2e9)):
+    """Device time of one step from CUDA events: ``calls`` steps enqueued
+    behind a spin kernel of ``sleep_cycles`` clocks, so that the card
+    finds them queued and runs them back to back.  Where a step waits for
+    the card inside (a readback), the card idles while the host enqueues
+    the rest, and that idle time is in this figure too."""
+    import torch
+    step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(calls):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def cub_steady(tag, step, sample):
+    """The trainer loop's steady state: STEADY_WARM iterations, then
+    STEADY_DRAWS consecutive ones on the host clock (each: the host batch
+    draw and upload ``sample()``, the step, and the loss readback the
+    trainer does), synchronised at both ends; then the device time of the
+    step alone on one uploaded batch: the profiler's busy time
+    (``step_busy_ms``), which sets the idle share 1 - busy / step, and the
+    CUDA events' span of steps enqueued ahead (``step_event_ms``), which
+    also holds the card's waits for launches it ran out of."""
+    import torch
+    for _ in range(STEADY_WARM):
+        float(step(*sample())["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEADY_DRAWS):
+        loss = float(step(*sample())["loss"])
+        if not math.isfinite(loss):
+            fail(f"{tag}: non-finite loss in the steady-state window")
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / STEADY_DRAWS * 1e3
+    batch = sample()
+    busy, ops = step_busy_ms(lambda: step(*batch))
+    events = step_event_ms(lambda: step(*batch))
+    out = {"step_ms": step_ms, "device_busy_ms": busy,
+           "device_event_ms": events, "idle_share": 1 - busy / step_ms,
+           "device_ops": ops}
+    print(f"[{tag}] steady state: {STEADY_DRAWS} consecutive steps after "
+          f"{STEADY_WARM} warm-up steps, with the per-step loss readback "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def cub_losses_on_card(emb, labels, gen):
+    """``triplet_semihard_loss``, ``npairs_loss`` and ``cluster_loss`` at
+    batch 64 on the card against the CPU on the same inputs (1e-4): a
+    class-balanced batch of 64 test embeddings, and 64 (anchor, positive)
+    pairs of 64 classes for n-pairs.  Each CPU value must be above 0: the
+    hinges of a well-separated batch are all 0, and 0 against 0 would
+    check nothing."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.data.cub import sample_cub_batch
+    from multimodal_similarity_tpu_torch.ops import losses
+    from multimodal_similarity_tpu_torch.train.trainers._cub import (
+        class_index)
+    classes = class_index(labels)
+    idx = sample_cub_batch(classes, 64, gen)
+    pairs = np.array([gen.permutation(classes[c])[:2] for c in
+                      gen.permutation(sorted(classes))[:64]])
+    cases = {
+        "triplet_semihard_loss": (losses.triplet_semihard_loss,
+                                  (labels[idx], emb[idx], 0.2)),
+        "npairs_loss": (losses.npairs_loss,
+                        (labels[pairs[:, 0]], emb[pairs[:, 0]],
+                         emb[pairs[:, 1]])),
+        "cluster_loss": (losses.cluster_loss, (labels[idx], emb[idx])),
+    }
+    for name, (fn, args) in cases.items():
+        host = [torch.from_numpy(np.asarray(a)) if isinstance(
+            a, np.ndarray) else a for a in args]
+        want = float(fn(*host))
+        got = float(fn(*[a.cuda() if torch.is_tensor(a) else a
+                         for a in host]))
+        print(f"[cub-losses] {name} at batch 64: card {got:.7f} CPU "
+              f"{want:.7f}", flush=True)
+        if not want > 0:
+            fail(f"cub-losses: {name} is {want} on the CPU; the batch "
+                 "checks nothing")
+        if not (math.isfinite(got) and abs(got - want) <= 1e-4):
+            fail(f"cub-losses: {name} on the card {got} vs the CPU {want}")
+
+
+def inception_on_card(model, images):
+    """InceptionV2's pooled output on the card against a CPU copy of the
+    same weights on the same centre crops, in eval mode (the trained
+    running statistics; CUB_EVAL_TOL of the output's scale) and in
+    training mode (CUB_TRAIN_TOL), with the batch statistics that training
+    forward moves the running statistics towards (from zero, so the
+    buffers hold them times 1 - momentum; CUB_TRAIN_TOL of their scale)."""
+    import copy
+
+    import torch
+    from multimodal_similarity_tpu_torch.train.trainers.base_CUB import (
+        center_crop)
+    tower = copy.deepcopy(model.InceptionV2)
+    host = copy.deepcopy(tower).cpu()
+    x = center_crop(torch.from_numpy(images), CUB_CROP)
+    for mode, tol in (("eval", CUB_EVAL_TOL), ("train", CUB_TRAIN_TOL)):
+        if mode == "train":
+            for m in (tower, host):
+                for buf in m.buffers():
+                    buf.zero_()
+        tower.train(mode == "train")
+        host.train(mode == "train")
+        with torch.no_grad():
+            got = tower(x.cuda()).cpu()
+            want = host(x)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        line = (f"[inception] {mode} mode, {x.shape[0]} crops of "
+                f"{CUB_CROP}: pooled output card vs CPU max error "
+                f"{err:.3g} of its scale (tol {tol:g})")
+        if mode == "train":
+            s_err = max(float((b.cpu() - h).abs().max())
+                        / float(h.abs().max())
+                        for b, h in zip(tower.buffers(), host.buffers()))
+            line += f"; batch statistics max error {s_err:.3g}"
+            err = max(err, s_err)
+        print(line, flush=True)
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            fail(f"inception: {mode} mode differs between card and CPU")
+
+
+def cub_phase(root):
+    """The CUB track at the scripts' widths, random weights from seed
+    12345: ``base_model_CUB`` (scripts/train_base_CUB.sh: emb 64, batch
+    64, 64 triplets, Adam 1e-3, alpha 0.2) and ``pddm_CUB``
+    (scripts/CUB_pddm.sh) on 1024-d features and 312-d attributes of 100
+    classes x 59 images a split, 100 steps each; ``base_CUB --network
+    inception_v2`` (scripts/CUB_tensorflow.sh: emb 64, batch 32, Adam 1e-3)
+    on 224 crops of 256 x 256 images, 20 steps with ``--loss triplet`` and
+    10 with ``--loss batchhard`` (one K1 launch a step, nothing else), and
+    ``debug_CUB`` (2 steps).  Checks each run's losses and its metrics
+    against the NumPy oracle, InceptionV2 and the three losses on the card
+    against the CPU, and K1 at the path's shape against its plain version;
+    then, with the oracle's processes done, times each trainer's steady
+    step.  Returns the batch-hard launches of the ``base_CUB`` path."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.configs import TrainConfig
+    from multimodal_similarity_tpu_torch.data.cub import (
+        generate_synthetic_cub, sample_cub_batch)
+    from multimodal_similarity_tpu_torch.ops.kernels import LAUNCHES
+    from multimodal_similarity_tpu_torch.train.steps import (
+        embed_in_chunks, make_embed_fn, make_triplet_train_step)
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_CUB, base_model_CUB, debug_CUB, pddm_CUB)
+    from multimodal_similarity_tpu_torch.train.trainers._cub import (
+        class_index)
+
+    t_phase = time.time()
+    feats = generate_synthetic_cub(
+        os.path.join(root, "cub"), n_classes=CUB_CLASSES,
+        per_class=CUB_PER_CLASS, feat_dim=1024, att_dim=312, seed=CUB_SEED)
+    images = cub_images()
+    mb = (images["image_train"].nbytes + images["image_test"].nbytes) / 1e6
+    print(f"[cub] synthetic data in {time.time() - t_phase:.1f} s: "
+          f"features {feats['feat_train'].shape} / "
+          f"{feats['feat_test'].shape}, attributes "
+          f"{feats['att_train'].shape}, images "
+          f"{images['image_train'].shape} / {images['image_test'].shape} "
+          f"({mb:.0f} MB f32)", flush=True)
+    cuda = torch.device("cuda")
+    none = dict.fromkeys(LAUNCHES, 0)
+    oracle = OracleChecks()
+
+    def cfg(name, **kw):
+        return TrainConfig(name=name, DATA_ROOT=os.path.join(root, "cub"),
+                           silent_mode=True, seed=CUB_SEED, emb_dim=64,
+                           learning_rate=1e-3, optimizer="ADAM", alpha=0.2,
+                           **kw).resolve()
+
+    def feature_embed(key, sub=None):
+        def embed(res):
+            model = res.model if sub is None else getattr(res.model, sub)
+            x = torch.from_numpy(feats[key]).to(cuda)
+            return embed_in_chunks(make_embed_fn(model, True), x, cuda)
+        return embed
+
+    def image_embed(res):
+        embed = make_embed_fn(res.model, True)
+        return embed_in_chunks(
+            lambda x: embed(base_CUB.center_crop(x, CUB_CROP)),
+            images["image_test"], cuda, chunk=64)
+
+    rng = np.random.RandomState(1)
+    classes = class_index(feats["label_train"])
+    img_classes = class_index(images["label_train"])
+
+    def feature_batch():
+        idx = sample_cub_batch(classes, 64, rng)
+        return (torch.from_numpy(feats["feat_train"][idx]).to(cuda),
+                torch.from_numpy(feats["label_train"][idx] + 1).to(cuda),
+                torch.ones(len(idx), device=cuda), 1e-3)
+
+    def image_batch():
+        idx = sample_cub_batch(img_classes, 32, rng)
+        return (torch.from_numpy(images["image_train"][idx]).to(cuda),
+                torch.from_numpy(images["label_train"][idx]).to(cuda),
+                1e-3)
+
+    steady = {}             # tag -> (step, batch source), timed last
+    path = {}
+    try:
+        res, launches = drive_cub(
+            root, "base-model-CUB", base_model_CUB.train,
+            cfg("smoke_base_model_CUB", batch_size=64, max_epochs=100,
+                static_epochs=2500, triplet_per_batch=64),
+            feats, feature_embed("feat_test"), 100, 5, oracle, device=cuda)
+        expect_launches("base-model-CUB", launches, none)
+        steady["base_model_CUB"] = (make_triplet_train_step(
+            res.model, res.optimizer, triplet_per_batch=64, alpha=0.2,
+            generator=torch.Generator(device=cuda).manual_seed(0)),
+            feature_batch)
+
+        res, launches = drive_cub(
+            root, "pddm-CUB", pddm_CUB.train,
+            cfg("smoke_pddm_CUB", batch_size=64, max_epochs=100), feats,
+            feature_embed("att_test", "encoder"), 100, 5, oracle,
+            device=cuda)
+        expect_launches("pddm-CUB", launches, none)
+        # its test embeddings are less separated (val mAP about 0.4), so
+        # every loss's hinge is active on a batch of them
+        cub_losses_on_card(
+            feature_embed("att_test", "encoder")(res).cpu().numpy(),
+            feats["label_test"], np.random.RandomState(0))
+
+        for loss, steps in (("triplet", 20), ("batchhard", 10)):
+            tag = f"base-CUB-inception-{loss}"
+            c = cfg(f"smoke_base_CUB_{loss}", network="inception_v2",
+                    batch_size=32, max_epochs=steps, loss=loss)
+            res, launches = drive_cub(
+                root, tag, base_CUB.train, c, images, image_embed, steps, 5,
+                oracle, crop=CUB_CROP, device=cuda)
+            want = dict(none)
+            if loss == "batchhard":
+                want["batch_hard_stats_idx"] = steps
+                path = {k: launches[k] for k in BATCH_HARD}
+            expect_launches(tag, launches, want)
+            if loss == "triplet":
+                inception_on_card(res.model, images["image_test"][:8])
+            else:
+                # K1 at the path's shape (N=32, d=64, bf16) on the trained
+                # model's embeddings of a batch, against its plain version
+                x, labels, _ = image_batch()
+                with torch.no_grad():
+                    res.model.eval()
+                    e = base_CUB.l2_normalize(res.model(
+                        base_CUB.center_crop(x, CUB_CROP)))
+                ops, _ = check_inputs("base_CUB-shape", e, labels,
+                                      torch.ones(len(labels), device=cuda),
+                                      "bf16")
+                time_case("base_CUB-shape", ops, "bf16")
+            steady[f"base_CUB_{loss}"] = (base_CUB.make_cub_step(
+                res.model, res.optimizer, c, CUB_CROP,
+                torch.Generator(device=cuda).manual_seed(0)), image_batch)
+
+        # debug mode validates after each of its 2 steps
+        _, launches = drive_cub(
+            root, "debug-CUB", debug_CUB.train,
+            cfg("smoke_debug_CUB", network="inception_v2", batch_size=32,
+                max_epochs=20, loss="triplet"),
+            images, image_embed, 2, 2, oracle, crop=CUB_CROP, device=cuda)
+        expect_launches("debug-CUB", launches, none)
+        oracle.finish()
+    finally:
+        oracle.close()
+
+    times = {tag: cub_steady(tag, step, sample)
+             for tag, (step, sample) in steady.items()}
+    del steady
+    torch.cuda.empty_cache()
+    print(f"[cub] steady steps (ms) {json.dumps(times)}; CUB phase "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    return path
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1764,13 +2243,19 @@ def main():
         write_synthetic(steady_root, n_sessions=40)
         launches = trainer_phase(root, steady_root)
         base_model_phase(root, steady_root)
-    # a batch-hard kernel the trainer's gate did not take is counted on the
-    # mining path, which runs every one of them
+        cub = cub_phase(root)
+    # each batch-hard kernel's launches on the trainers' paths (the Honda
+    # batch-hard trainer, and base_CUB --loss batchhard, which takes K1);
+    # one that neither path's gate took is counted on the mining path,
+    # which runs every one of them
     for name in BATCH_HARD:
-        path = "trainer" if launches[name] else "mining"
-        launches[name] = launches[name] or mining[name]
-        print(f"[launches] {name}: {launches[name]} on the {path} path",
-              flush=True)
+        paths = {"trainer": launches[name], "base_CUB": cub[name]}
+        if not sum(paths.values()):
+            paths = {"mining": mining[name]}
+        launches[name] = sum(paths.values())
+        print(f"[launches] {name}: {launches[name]} ("
+              + ", ".join(f"{v} on the {k} path" for k, v in paths.items())
+              + ")", flush=True)
     launches["sqdist"] = sq_launches
 
     kernels = []

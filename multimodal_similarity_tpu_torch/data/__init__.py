@@ -1,5 +1,11 @@
 """Data layer: on-disk contract readers, the session loader, TSN prep."""
 
+from multimodal_similarity_tpu_torch.data.cub import (
+    generate_synthetic_cub,
+    load_cub,
+    prepare_attribute,
+    sample_cub_batch,
+)
 from multimodal_similarity_tpu_torch.data.datasets import (
     load_data_and_label,
     load_validation_set,
@@ -28,5 +34,6 @@ __all__ = [
     "modality_suffix", "SessionBatchLoader", "generate_synthetic_honda",
     "tsn_prepare_input", "tsn_prepare_input_test", "LABEL_TRANSFER",
     "MIN_LENGTH", "MAX_LENGTH", "MIN_LENGTH_BACKGROUND", "MODALITY_SUFFIX",
-    "HONDA_NUM2LABELS", "STIMULI_NUM2LABELS",
+    "HONDA_NUM2LABELS", "STIMULI_NUM2LABELS", "load_cub",
+    "generate_synthetic_cub", "sample_cub_batch", "prepare_attribute",
 ]

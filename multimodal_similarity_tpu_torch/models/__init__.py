@@ -1,4 +1,5 @@
-"""Model zoo: the temporal encoders.
+"""Model zoo: the temporal encoders, the CUB heads and tower, the PDDM
+pair head.
 
 ``build_encoder`` mirrors the reference trainers' ``--network`` dispatch.
 """
@@ -6,8 +7,11 @@
 from __future__ import annotations
 
 from multimodal_similarity_tpu_torch.models.encoders import (
-    RTSN, TSN, ConvBiRTSN, ConvEmbed, ConvLSTM, ConvRTSN, ConvTSN, Dropout,
-    OutputLayer)
+    RTSN, TSN, ConvBiRTSN, ConvEmbed, ConvLSTM, ConvRTSN, ConvTSN, CUBLayer,
+    Dropout, OutputLayer)
+from multimodal_similarity_tpu_torch.models.heads import PDDM
+from multimodal_similarity_tpu_torch.models.inception_v2 import (
+    ENDPOINT_CHANNELS, InceptionV2)
 from multimodal_similarity_tpu_torch.models.lstm import (
     LSTM, BiLSTM, TFLSTMCell)
 
@@ -46,5 +50,6 @@ def build_encoder(network: str, *, num_seg: int = 3, emb_dim: int = 128,
 
 
 __all__ = ["TSN", "RTSN", "ConvEmbed", "ConvTSN", "ConvRTSN", "ConvBiRTSN",
-           "ConvLSTM", "OutputLayer", "Dropout", "LSTM", "BiLSTM",
-           "TFLSTMCell", "build_encoder"]
+           "ConvLSTM", "OutputLayer", "CUBLayer", "Dropout", "LSTM", "BiLSTM",
+           "TFLSTMCell", "PDDM", "InceptionV2", "ENDPOINT_CHANNELS",
+           "build_encoder"]

@@ -189,3 +189,18 @@ class OutputLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.fc.weight.dtype)
         return self.out(self.dropout(torch.relu(self.fc(x))))
+
+
+class CUBLayer(nn.Module):
+    """1-layer FC projection head with input dropout (the CUB track's
+    head over 1024-d image features)."""
+
+    def __init__(self, n_input: int, n_output: int, keep_prob: float = 1.0,
+                 generator: Generator = None,
+                 dropout_generator: Generator = None):
+        super().__init__()
+        self.dropout = Dropout(1.0 - keep_prob, dropout_generator)
+        self.fc = dense(n_input, n_output, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(self.dropout(x.to(self.fc.weight.dtype)))

@@ -17,6 +17,7 @@ from torch import nn
 
 from multimodal_similarity_tpu_torch.data.device_feed import (
     dequant_features, take_features)
+from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
 from multimodal_similarity_tpu_torch.ops.losses import triplet_loss_masked
 from multimodal_similarity_tpu_torch.ops.mining import (
     mine_semihard_triplets_from_embeddings)
@@ -29,6 +30,20 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     # x * rsqrt(max(sum(x^2), eps)); near-zero vectors stay near zero
     sq = (x * x).sum(dim=-1, keepdim=True)
     return x * torch.rsqrt(torch.clamp(sq, min=eps))
+
+
+_PAD_DIST = 1e30
+
+
+def masked_self_distance(emb: torch.Tensor, mask: torch.Tensor,
+                         metric: str) -> torch.Tensor:
+    """[N, N] self-distances with a zero diagonal, and padding rows and
+    columns (``mask`` 0) pushed to +1e30 off the diagonal."""
+    d = pairwise_distance(emb, emb, metric)
+    n = d.shape[0]
+    d = d * (1.0 - torch.eye(n, dtype=d.dtype, device=d.device))
+    invalid = 1.0 - mask.to(d.dtype)
+    return d + invalid[None, :] * _PAD_DIST + invalid[:, None] * _PAD_DIST
 
 
 def make_embed_fn(model: nn.Module, normalized: bool = True) -> Callable:

@@ -1,0 +1,33 @@
+"""Debug harness for the end-to-end CUB trainer: ``base_CUB`` with
+``debug=True`` (2 epochs), the reference's smoke harness
+(``scripts/CUB_tensorflow.sh``).
+
+Run:  python -m multimodal_similarity_tpu_torch.train.trainers.debug_CUB --DATA_ROOT <dir> ...
+(``--device cpu`` runs on the CPU; the default is ``cuda``.)
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from multimodal_similarity_tpu_torch.configs import TrainConfig
+from multimodal_similarity_tpu_torch.train.trainers.base_CUB import (
+    train as _train)
+
+
+def train(cfg: TrainConfig, **kw):
+    return _train(cfg, debug=True, **kw)
+
+
+def main(argv=None):
+    """The trainer CLI: the JAX trainer's flags, plus ``--device`` (default
+    ``cuda``)."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", default=None)
+    args, rest = p.parse_known_args(argv)
+    train(TrainConfig.parse(rest), device=args.device)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
