@@ -82,7 +82,24 @@ Phases, each fatal on failure (no error is caught):
    card against the CPU, K1 at the path's shape (N=32, d=64, bf16) against
    its plain version with its times, and the steady step of
    ``base_model_CUB`` and of each ``base_CUB`` loss beside its device time
-   (profiler and CUDA events) and idle share.
+   (profiler and CUDA events) and idle share (the semi-hard miner ranks
+   labels on the device since the F3 fix, so ``base_model_CUB``'s step
+   has no readback inside; scripts/f3_probe.py times it and the fused step
+   against another tree in turns);
+13. the single-modality pair trainers at the scripts' widths, 1 epoch
+   each with random weights: ``pddm_model`` on sensors (8,) and on segment
+   (357,) (scripts/train_pddm.sh: RTSN, emb_dim 32, 200 triplets, budget
+   1000, 3 sessions a batch, mining on the all-pairs PDDM matrix),
+   ``multitask_model`` at ConvRTSN full width (emb_dim 128, lambda_ver
+   0.1, keep_prob 0.5) and ``pairsim_model`` on sensors (emb_dim 128,
+   batch 128, one negative, hard passes from epoch 0); finite losses, no
+   launch of any ``csrc/`` kernel on any of the four runs, the metrics
+   against the NumPy oracle, the PDDM similarity matrix of the validation
+   set and PairSim's validation pair probabilities on the card against the
+   CPU (PAIR_PROB_TOL), val_mAP_PDDM and val_acc recomputed from the CPU's
+   (PAIR_METRIC_TOL), Adam's step count against the steps plus the hard
+   passes, and the steady step of ``pddm_model`` and ``multitask_model``
+   (``steady_step``, with the feed wait and the time in steps).
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -1198,12 +1215,13 @@ def full_width_cfg(root, name, **kw):
     return TrainConfig(**args).resolve()
 
 
-def drive_trainer(root, tag, train_fn, cfg, expect_val_loss=True):
+def drive_trainer(root, tag, train_fn, cfg, expect_val_loss=True,
+                  encoder=lambda model: model):
     """One trainer run, every launch count set to 0 just before it and read
     just after; finite losses (a finite validation loss too, unless the
     trainer logs none), and the device retrieval metrics of the trained
-    model against the NumPy oracle.  Returns (result, launches,
-    validations, experiment, validation embeddings, labels)."""
+    model's ``encoder`` against the NumPy oracle.  Returns (result,
+    launches, validations, experiment, validation embeddings, labels)."""
     import numpy as np
     import torch
     from multimodal_similarity_tpu_torch.eval.metrics import (
@@ -1250,9 +1268,10 @@ def drive_trainer(root, tag, train_fn, cfg, expect_val_loss=True):
 
     # outputs: the device retrieval metrics against the NumPy oracle on the
     # trained model's validation embeddings
-    exp = HondaExperiment(cfg, result_dir=os.path.join(root, f"check_{tag}"))
+    exp = HondaExperiment(cfg, result_dir=os.path.join(root, f"check_{tag}"),
+                          supports_int8=True)
     exp.close()
-    emb = embed_in_chunks(make_embed_fn(res.model, cfg.normalized),
+    emb = embed_in_chunks(make_embed_fn(encoder(res.model), cfg.normalized),
                           exp.val_feats, torch.device("cuda"))
     if tuple(emb.shape) != (exp.val_feats.shape[0], cfg.emb_dim) or \
             not bool(torch.isfinite(emb).all()):
@@ -1392,7 +1411,8 @@ def steady_experiment(steady_root, tag, **kw):
     from multimodal_similarity_tpu_torch.train.trainers._honda import (
         HondaExperiment)
     exp = HondaExperiment(full_width_cfg(steady_root, f"steady_{tag}", **kw),
-                          result_dir=os.path.join(steady_root, f"r_{tag}"))
+                          result_dir=os.path.join(steady_root, f"r_{tag}"),
+                          supports_int8=True)
     exp.close()
     return exp
 
@@ -2188,6 +2208,215 @@ def cub_phase(root):
     return path
 
 
+# ---------------------------------------------------------------------------
+# the single-modality pair trainers
+# ---------------------------------------------------------------------------
+
+PAIR_SESSIONS = 40
+# the PDDM similarity matrix and PairSim's pair probabilities on the card
+# against the same model on the CPU: f32 products of widths 8-357 in a
+# different order, on probabilities in [0, 1]
+PAIR_PROB_TOL = 1e-5
+# a mAP or an accuracy recomputed from the CPU's values: a near-tie of the
+# card's and the CPU's values may swap one ranking or one decision
+PAIR_METRIC_TOL = 1e-3
+
+
+def write_pair_synthetic(root):
+    """The pair trainers' modalities, sensors (8,) and segment (357,), on
+    PAIR_SESSIONS sessions x 240 frames (24 train sessions: the pddm
+    trainers' --label_num 9 takes 3 batches an epoch of them, the steady
+    window all 8)."""
+    from multimodal_similarity_tpu_torch.data import generate_synthetic_honda
+    t0 = time.time()
+    generate_synthetic_honda(root, n_sessions=PAIR_SESSIONS,
+                             frames_per_session=240,
+                             modal_dims={"sensors": (8,), "segment": (357,)},
+                             seed=0)
+    print(f"[pair] synthetic sensors / segment dir ({PAIR_SESSIONS} "
+          f"sessions x 240 frames) written in {time.time() - t0:.1f} s",
+          flush=True)
+
+
+def pair_cfg(root, name, **kw):
+    """scripts/train_pddm.sh:4-13 (RTSN, emb_dim 32, 200 triplets, 3
+    sessions a batch, event budget 1000, --label_num 9, Adam, lr 1e-2) and
+    scripts/train_pairsim_model.sh, as ``kw`` sets them; 1 epoch."""
+    from multimodal_similarity_tpu_torch.configs import TrainConfig
+    args = dict(DATA_ROOT=root, name=name, network="rtsn", num_seg=3,
+                emb_dim=32, triplet_select="facenet", label_num=9,
+                max_epochs=1, static_epochs=750, learning_rate=1e-2,
+                triplet_per_batch=200, sess_per_batch=3,
+                event_per_batch=1000, optimizer="ADAM", log_flush_every=1)
+    args.update(kw)
+    return TrainConfig(**args).resolve()
+
+
+def check_pddm_matrix(tag, res, exp, cfg, vals):
+    """The PDDM similarity matrix of the validation set on the card against
+    the same model on the CPU (PAIR_PROB_TOL), and the trainer's
+    val_mAP_PDDM recomputed from the CPU matrix (PAIR_METRIC_TOL)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.train.trainers.pddm_model import (
+        mAP_PDDM, pddm_similarity_matrix)
+    sim = pddm_similarity_matrix(res.model, exp.val_feats,
+                                 torch.device("cuda"), cfg.normalized)
+    sim_cpu = pddm_similarity_matrix(copy.deepcopy(res.model).cpu(),
+                                     exp.val_feats, torch.device("cpu"),
+                                     cfg.normalized)
+    n = exp.val_feats.shape[0]
+    err = float(np.max(np.abs(sim - sim_cpu)))
+    cpu_map = mAP_PDDM(sim_cpu, exp.val_labels)
+    print(f"[{tag}] PDDM matrix [{n}, {n}] card vs CPU max |diff| "
+          f"{err:.3g}; val_mAP_PDDM trainer {vals[-1]['val_mAP_PDDM']:.6f},"
+          f" from the CPU matrix {cpu_map:.6f}", flush=True)
+    if sim.shape != (n, n) or not np.isfinite(sim).all() or \
+            err > PAIR_PROB_TOL:
+        fail(f"{tag}: the PDDM matrix on the card differs from the CPU's")
+    if abs(cpu_map - vals[-1]["val_mAP_PDDM"]) > PAIR_METRIC_TOL:
+        fail(f"{tag}: val_mAP_PDDM differs from the CPU matrix's")
+
+
+def check_pairsim(tag, res, cfg, root):
+    """``pairsim_model``'s run: finite losses, hard passes taken, Adam's
+    step count = the trainer's steps + its hard passes, and its val_acc
+    recomputed on the card and on the CPU from the same fixed pairs."""
+    import copy
+
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+    from multimodal_similarity_tpu_torch.train.trainers.pairsim_model import (
+        _pad_pairs, evaluate_pairs, random_pairs)
+    recs = [json.loads(line) for line in
+            open(os.path.join(res.result_dir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    hard = [r["negative_count"] for r in recs if "loss" in r]
+    vals = [r["val_acc"] for r in recs if "val_acc" in r]
+    adam = {int(s["step"]) for s in res.optimizer.state.values()}
+    want_adam = res.step + sum(1 for h in hard if h)
+    print(f"[{tag}] {res.step} steps, hard pairs a step {hard}, Adam steps "
+          f"{sorted(adam)}, val_acc {vals}", flush=True)
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: no or a non-finite training loss")
+    if not sum(hard) or adam != {want_adam}:
+        fail(f"{tag}: no hard pass, or Adam took {adam} steps, not "
+             f"{want_adam}")
+    if len(vals) != cfg.max_epochs:
+        fail(f"{tag}: {len(vals)} validations")
+
+    exp = HondaExperiment(cfg, result_dir=os.path.join(root, f"check_{tag}"),
+                          limit_label_num=False,
+                          val_sessions=cfg.val_session[:3])
+    exp.close()
+    idx, lab = random_pairs(exp.val_labels, 1_000_000, test=True)
+    idx, lab, _ = _pad_pairs(idx, lab, len(lab))
+    x = torch.from_numpy(exp.val_feats)
+    acc, prob = evaluate_pairs(res.model, x.cuda(), idx, lab,
+                               torch.device("cuda"))
+    acc_cpu, prob_cpu = evaluate_pairs(copy.deepcopy(res.model).cpu(), x,
+                                       idx, lab, torch.device("cpu"))
+    err = float(np.max(np.abs(prob - prob_cpu)))
+    print(f"[{tag}] {len(lab)} validation pairs: val_acc card {acc:.6f}, "
+          f"CPU {acc_cpu:.6f}; probabilities max |diff| {err:.3g}",
+          flush=True)
+    if abs(acc - vals[-1]) > 1e-9 or err > PAIR_PROB_TOL or \
+            abs(acc - acc_cpu) > PAIR_METRIC_TOL:
+        fail(f"{tag}: val_acc or the pair probabilities differ")
+
+
+def pair_phase(root, steady_root):
+    """The single-modality pair trainers at the scripts' widths:
+    ``pddm_model`` on sensors (RTSN, n_input 8) and on segment (n_input
+    357), ``multitask_model`` at ConvRTSN full width on ``root``'s resnet
+    maps (emb_dim 128, lambda_ver 0.1, keep_prob 0.5, 200 triplets), and
+    ``pairsim_model`` on sensors (emb_dim 128, batch_size 128, one
+    negative, hard passes from epoch 0), 1 epoch each, with random
+    weights.  Checks finite losses, no launch of any ``csrc/`` kernel, the
+    metrics against the NumPy oracle, the PDDM matrix and PairSim's pair
+    probabilities on the card against the CPU; then the steady step of
+    ``pddm_model`` (sensors) and ``multitask_model``."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        multitask_model, pairsim_model, pddm_model)
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+
+    t_phase = time.time()
+    pair_root = os.path.join(root, "pair")
+    write_pair_synthetic(pair_root)
+    none = dict.fromkeys(LAUNCHES, 0)
+    keys = ("events", "labels", "mask")
+    steady = {}
+    for feat, n_input in (("sensors", 8), ("segment", 357)):
+        tag = f"pddm-{feat}"
+        cfg = pair_cfg(pair_root, f"smoke_{tag}", feat=feat, n_input=n_input)
+        res, launches, _, exp, _, _ = drive_trainer(
+            pair_root, tag, pddm_model.train, cfg, expect_val_loss=False,
+            encoder=lambda m: m.encoder)
+        expect_launches(tag, launches, none)
+        vals = [json.loads(line) for line in
+                open(os.path.join(res.result_dir, "metrics.jsonl"))]
+        check_pddm_matrix(tag, res, exp, cfg,
+                          [r for r in vals if "val_mAP_PDDM" in r])
+        if feat == "sensors":
+            # all 24 train sessions: 8 batches an epoch
+            exp = HondaExperiment(
+                pair_cfg(pair_root, "steady_pddm", feat=feat,
+                         n_input=n_input, label_num=93),
+                result_dir=os.path.join(pair_root, "r_steady_pddm"))
+            exp.close()
+            step = pddm_model.make_pddm_step(
+                res.model, res.optimizer, cfg,
+                torch.Generator(device="cuda").manual_seed(0))
+            steady["pddm_model"] = (cfg, step, pddm_model.loader_batches(exp))
+
+    kw = {"lambda_ver": 0.1, "triplet_select": "facenet",
+          "triplet_per_batch": 200, "max_epochs": 1}
+    cfg = full_width_cfg(root, "smoke_multitask", **kw)
+    res, launches, _, _, _, _ = drive_trainer(
+        root, "multitask", multitask_model.train, cfg, expect_val_loss=False,
+        encoder=lambda m: m.encoder)
+    expect_launches("multitask", launches, none)
+    step = multitask_model.make_multitask_step(
+        res.model, res.optimizer, cfg,
+        torch.Generator(device="cuda").manual_seed(0))
+    steady["multitask_model"] = (cfg, step, pddm_model.loader_batches(
+        steady_experiment(steady_root, "multitask", **kw)))
+
+    cfg = pair_cfg(pair_root, "smoke_pairsim", feat="sensors", n_input=8,
+                   emb_dim=128, batch_size=128, num_negative=1,
+                   negative_epochs=0, static_epochs=500)
+    reset_launch_counts()
+    t0 = time.time()
+    res = pairsim_model.train(
+        cfg, result_dir=os.path.join(pair_root, "result_pairsim"))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"[pairsim] trained in {time.time() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    expect_launches("pairsim", launches, none)
+    check_pairsim("pairsim", res, cfg, pair_root)
+    del res
+
+    times = {}
+    for tag, (cfg, step, source) in steady.items():
+        times[tag] = steady_step(
+            tag, cfg, keys,
+            lambda b, step=step, lr=cfg.learning_rate: step(
+                b["events"], b["labels"], b["mask"], lr), source)
+    del steady
+    torch.cuda.empty_cache()
+    print(f"[pair] steady state (s a loader draw) {json.dumps(times)}; pair "
+          f"phase {time.time() - t_phase:.1f} s", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2244,6 +2473,7 @@ def main():
         launches = trainer_phase(root, steady_root)
         base_model_phase(root, steady_root)
         cub = cub_phase(root)
+        pair_phase(root, steady_root)
     # each batch-hard kernel's launches on the trainers' paths (the Honda
     # batch-hard trainer, and base_CUB --loss batchhard, which takes K1);
     # one that neither path's gate took is counted on the mining path,

@@ -1,5 +1,5 @@
-"""Model zoo: the temporal encoders, the CUB heads and tower, the PDDM
-pair head.
+"""Model zoo: the temporal encoders, the CUB heads and tower, the pair
+heads (PairSim, PairSim2, PDDM) and their all-pairs scorers.
 
 ``build_encoder`` mirrors the reference trainers' ``--network`` dispatch.
 """
@@ -9,7 +9,8 @@ from __future__ import annotations
 from multimodal_similarity_tpu_torch.models.encoders import (
     RTSN, TSN, ConvBiRTSN, ConvEmbed, ConvLSTM, ConvRTSN, ConvTSN, CUBLayer,
     Dropout, OutputLayer)
-from multimodal_similarity_tpu_torch.models.heads import PDDM
+from multimodal_similarity_tpu_torch.models.heads import (
+    PDDM, PairSim, PairSim2, score_all_pairs, score_all_pairs_sym, score_rows)
 from multimodal_similarity_tpu_torch.models.inception_v2 import (
     ENDPOINT_CHANNELS, InceptionV2)
 from multimodal_similarity_tpu_torch.models.lstm import (
@@ -51,5 +52,6 @@ def build_encoder(network: str, *, num_seg: int = 3, emb_dim: int = 128,
 
 __all__ = ["TSN", "RTSN", "ConvEmbed", "ConvTSN", "ConvRTSN", "ConvBiRTSN",
            "ConvLSTM", "OutputLayer", "CUBLayer", "Dropout", "LSTM", "BiLSTM",
-           "TFLSTMCell", "PDDM", "InceptionV2", "ENDPOINT_CHANNELS",
-           "build_encoder"]
+           "TFLSTMCell", "PDDM", "PairSim", "PairSim2", "score_all_pairs",
+           "score_rows", "score_all_pairs_sym", "InceptionV2",
+           "ENDPOINT_CHANNELS", "build_encoder"]

@@ -77,8 +77,16 @@ def _mine(labels: torch.Tensor, valid: Optional[torch.Tensor],
                if valid is None else valid.reshape(-1).to(torch.bool))
     g_anchor, g_pos, g_negs = gumbels
 
-    # per-class valid-member counts (self included) without an [N, N] mask
-    dense = torch.unique(labels, return_inverse=True)[1]
+    # per-class valid-member counts (self included) without an [N, N] mask:
+    # sort-rank the raw labels into dense ids, every size fixed by N, so
+    # nothing waits for the device (torch.unique's output size depends on
+    # the data, which makes the host read it back)
+    sorted_lab, order = torch.sort(labels)
+    new_group = torch.cat([
+        torch.zeros(1, dtype=torch.int64, device=labels.device),
+        (sorted_lab[1:] != sorted_lab[:-1]).to(torch.int64)])
+    dense = torch.empty_like(order).scatter_(0, order,
+                                             torch.cumsum(new_group, 0))
     counts = torch.zeros(n, dtype=torch.float32, device=labels.device)
     counts.index_add_(0, dense, valid_b.to(torch.float32))
     class_count = counts[dense]

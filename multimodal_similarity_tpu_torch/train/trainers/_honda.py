@@ -5,7 +5,7 @@ checkpointing.  Single modality, single process."""
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Sequence
 
 from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.data import (
@@ -30,21 +30,35 @@ class HondaExperiment:
 
     def __init__(self, cfg: TrainConfig, *,
                  event_budget: Optional[int] = None,
-                 result_dir: Optional[str] = None):
+                 result_dir: Optional[str] = None,
+                 limit_label_num: bool = True,
+                 val_sessions: Optional[Sequence[str]] = None,
+                 supports_int8: bool = False):
+        """``limit_label_num``: train on the first ``cfg.label_num``
+        sessions only; ``val_sessions``: validate on these in place of
+        ``cfg.val_session``; ``supports_int8``: the trainer dequantizes
+        --int8_features batches in its step (elsewhere the flag raises)."""
         self.cfg = cfg
         feat = cfg.feat if isinstance(cfg.feat, str) else cfg.feat[0]
         if not isinstance(cfg.feat, str) and len(cfg.feat) > 1:
             raise NotImplementedError(
-                "multimodal datasets are not ported yet (ROADMAP slice 5)")
+                "multimodal datasets are not ported yet (ROADMAP slice 5b)")
+        if cfg.int8_features and not supports_int8:
+            raise ValueError(
+                "--int8_features is not supported by this trainer (it "
+                "requires a device-fed step that dequantizes inline); "
+                "supported: base_model (facenet), base_model_batchhard, "
+                "base_model_lifted")
         self.result_dir = setup_experiment(cfg, result_dir=result_dir)
         self.logger = MetricsLogger(self.result_dir)
         self.ckpt = CheckpointManager(self.result_dir, cfg.name)
         self.event_budget = event_budget or cfg.event_per_batch
 
-        # the labeled sessions
         self.train_set = prepare_dataset(
             cfg.feature_root, cfg.train_session, feat, cfg.label_root,
-            cfg.label_type)[: cfg.label_num]
+            cfg.label_type)
+        if limit_label_num:
+            self.train_set = self.train_set[: cfg.label_num]
         self.batch_per_epoch = len(self.train_set) // cfg.sess_per_batch
         if self.batch_per_epoch < 1:
             raise ValueError(f"{len(self.train_set)} train sessions < "
@@ -56,8 +70,9 @@ class HondaExperiment:
                                              cfg.num_seg)],
             seed=cfg.seed)
 
-        val_set = prepare_dataset(cfg.feature_root, cfg.val_session, feat,
-                                  cfg.label_root, cfg.label_type)
+        val_set = prepare_dataset(cfg.feature_root,
+                                  list(val_sessions or cfg.val_session),
+                                  feat, cfg.label_root, cfg.label_type)
         self.val_feats, self.val_labels, val_sess, val_bound = \
             load_validation_set(val_set, functools.partial(
                 tsn_prepare_input_test, cfg.num_seg))

@@ -165,7 +165,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
                          "gather dense features")
     device = resolve_device(device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
-                          result_dir=result_dir)
+                          result_dir=result_dir, supports_int8=True)
     init_gen = torch.Generator().manual_seed(cfg.seed)
     drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     mine_gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)

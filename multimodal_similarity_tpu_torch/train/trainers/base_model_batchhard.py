@@ -148,7 +148,7 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
     _check_supported(cfg)
     device = resolve_device(device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
-                          result_dir=result_dir)
+                          result_dir=result_dir, supports_int8=True)
     init_gen = torch.Generator().manual_seed(cfg.seed)
     drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     model = build_encoder(cfg.network, num_seg=cfg.num_seg,

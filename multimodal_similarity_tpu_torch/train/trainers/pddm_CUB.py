@@ -57,6 +57,37 @@ class PDDMModel(nn.Module):
         self.pddm = PDDM(cfg.emb_dim, generator)
 
 
+def pddm_update(model: nn.Module, optimizer, cfg: TrainConfig,
+                rows: torch.Tensor, mined, learning_rate: float) -> dict:
+    """Train-mode forward of the mined [a; p; n] ``rows`` through
+    ``model.encoder``, the PDDM margin loss (a hinge at 0.6 on prob[:, 0]
+    of the anchor-positive against the anchor-negative pair) plus 0.5 x the
+    masked triplet loss (+ L2), and one optimizer step.  Returns the step's
+    device scalars."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    emb = model.encoder(rows)
+    if cfg.normalized:
+        emb = l2_normalize(emb)
+    t = mined.anchor.shape[0]
+    a, p, n = emb[:t], emb[t:2 * t], emb[2 * t:]
+    metric_loss = triplet_loss_masked(a, p, n, mined.mask, cfg.alpha)
+    _, prob_ap = model.pddm.score(a, p)
+    _, prob_an = model.pddm.score(a, n)
+    hinge = torch.clamp(prob_ap[:, 0] - prob_an[:, 0] + PDDM_MARGIN,
+                        min=0.0)
+    pddm_loss = (hinge * mined.mask).sum() / torch.clamp(
+        mined.mask.sum(), min=1.0)
+    total = pddm_loss + 0.5 * metric_loss
+    if cfg.lambda_l2:
+        total = total + cfg.lambda_l2 * l2_regularization(model)
+    total.backward()
+    apply_gradients(optimizer, learning_rate)
+    return {"loss": total.detach(), "pddm_loss": pddm_loss.detach(),
+            "metric_loss": metric_loss.detach(),
+            "triplet_num": mined.mask.sum()}
+
+
 def make_pddm_step(model: PDDMModel, optimizer, cfg: TrainConfig,
                    generator: Optional[torch.Generator]) -> Callable:
     """step(atts [B, n_input], labels [B], learning_rate) -> device
@@ -70,29 +101,8 @@ def make_pddm_step(model: PDDMModel, optimizer, cfg: TrainConfig,
             dists, labels, generator, cfg.triplet_per_batch,
             alpha=cfg.alpha, num_negative=cfg.num_negative)
         tri_idx = torch.cat([mined.anchor, mined.positive, mined.negative])
-
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        emb = model.encoder(atts[tri_idx])
-        if cfg.normalized:
-            emb = l2_normalize(emb)
-        t = mined.anchor.shape[0]
-        a, p, n = emb[:t], emb[t:2 * t], emb[2 * t:]
-        metric_loss = triplet_loss_masked(a, p, n, mined.mask, cfg.alpha)
-        _, prob_ap = model.pddm.score(a, p)
-        _, prob_an = model.pddm.score(a, n)
-        hinge = torch.clamp(prob_ap[:, 0] - prob_an[:, 0] + PDDM_MARGIN,
-                            min=0.0)
-        pddm_loss = (hinge * mined.mask).sum() / torch.clamp(
-            mined.mask.sum(), min=1.0)
-        total = pddm_loss + 0.5 * metric_loss
-        if cfg.lambda_l2:
-            total = total + cfg.lambda_l2 * l2_regularization(model)
-        total.backward()
-        apply_gradients(optimizer, learning_rate)
-        return {"loss": total.detach(), "pddm_loss": pddm_loss.detach(),
-                "metric_loss": metric_loss.detach(),
-                "triplet_num": mined.mask.sum()}
+        return pddm_update(model, optimizer, cfg, atts[tri_idx], mined,
+                           learning_rate)
 
     return step
 
