@@ -99,12 +99,33 @@ Phases, each fatal on failure (no error is caught):
    CPU (PAIR_PROB_TOL), val_mAP_PDDM and val_acc recomputed from the CPU's
    (PAIR_METRIC_TOL), Adam's step count against the steps plus the hard
    passes, and the steady step of ``pddm_model`` and ``multitask_model``
-   (``steady_step``, with the feed wait and the time in steps).
+   (``steady_step``, with the feed wait and the time in steps);
+14. the multimodal flagship at the width of
+   scripts/train_multimodal_model.sh (ConvRTSN on 8x8x1536 resnet maps,
+   emb_dim 128, sensors (8,) and segment (357,) branches restored from
+   phase 13's ``pddm_model`` checkpoints, budget 1000, 3 sessions a batch,
+   200 triplets, 5 negatives, --label_num 9, lambda_multimodal 0.1,
+   keep_prob 0.5, --no_joint), random core weights, 1 epoch each:
+   ``multimodal_model`` on the host miners, with --device_mining in f32
+   and with --int8_features, ``multimodal_model_hardonly``, and
+   ``multimodal_model_weak --multimodal_select confidence``, then the host
+   path and --device_mining again with the branches' PDDM output layers
+   scaled and shifted (PDDM_SCALE, PDDM_SHIFT) so that the structure term
+   fires, on the trainers' directory with sensors and segment features
+   written beside its resnet maps; finite losses, hard triplets on every
+   flagship path and structure triplets on the scaled runs, no launch of
+   any ``csrc/`` kernel, the metrics against the NumPy oracle, the fused
+   PDDM similarity of a batch on the card against the CPU (PAIR_PROB_TOL),
+   the structure miner on the card against the CPU on the same similarity
+   and Gumbel draws (index-equal), and the steady step of the host path
+   and of --device_mining on a directory whose batches fill the 1000-event
+   budget with real events (``write_full_budget``).
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
 """
 
+import functools
 import json
 import math
 import os
@@ -1421,20 +1442,22 @@ def _overlap(spans, lo, hi):
     return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in spans)
 
 
-def steady_step(tag, cfg, device_keys, step, source):
+def steady_step(tag, cfg, device_keys, step, source, warm=STEADY_WARM,
+                draws=STEADY_DRAWS):
     """The trainer's step time at its steady state: the trainer's own feed
     source (fresh loader batches, epoch after epoch, and its selection or
     random miner) on the feed thread through ``device_prefetch`` with the
     config's feature casts, its step on the main thread with a readback of
     each step's loss (as the trainer at log_flush_every=1, and a finite
-    check).  After STEADY_WARM loader draws (the feed's fill), a window of
-    STEADY_DRAWS consecutive draws on the host clock, synchronised at both
+    check).  After ``warm`` loader draws (the feed's fill), a window of
+    ``draws`` consecutive draws on the host clock, synchronised at both
     ends; a draw the miner finds nothing in takes no optimizer step and
     stays in the window.  Within the window it also sums the main thread's
     wait for the feed, its time in the steps, and the feed thread's wait
     for its source (the loader and the selection).  Returns those, each
     over the window's draws, as ``step_s``, ``feed_wait_s``,
-    ``in_step_s`` and ``source_wait_s``."""
+    ``in_step_s`` and ``source_wait_s``, and the window's optimizer steps
+    as ``steps``."""
     import torch
     from multimodal_similarity_tpu_torch.data.device_feed import (
         device_prefetch, feature_keys)
@@ -1460,8 +1483,8 @@ def steady_step(tag, cfg, device_keys, step, source):
                              **feature_keys(cfg))
     steps = 0
     try:
-        for draw in range(STEADY_WARM + STEADY_DRAWS):
-            if draw == STEADY_WARM:
+        for draw in range(warm + draws):
+            if draw == warm:
                 torch.cuda.synchronize()
                 t0, steps = time.perf_counter(), 0
             ta = time.perf_counter()
@@ -1481,15 +1504,16 @@ def steady_step(tag, cfg, device_keys, step, source):
         stream.close()
     if not steps:
         fail(f"{tag}: no optimizer step in the steady-state window")
-    n = STEADY_DRAWS
-    out = {"step_s": (t1 - t0) / n,
+    n = draws
+    out = {"steps": steps, "step_s": (t1 - t0) / n,
            "feed_wait_s": _overlap(wait_spans, t0, t1) / n,
            "in_step_s": _overlap(step_spans, t0, t1) / n,
            "source_wait_s": _overlap(source_spans, t0, t1) / n}
     print(f"[{tag}] steady state: {n} consecutive loader draws "
           f"({steps} optimizer steps) in {t1 - t0:.4f} s after "
-          f"{STEADY_WARM} warm-up draws; a draw (s): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+          f"{warm} warm-up draws; a draw (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()
+                      if k != "steps"), flush=True)
     return out
 
 
@@ -2339,7 +2363,8 @@ def pair_phase(root, steady_root):
     weights.  Checks finite losses, no launch of any ``csrc/`` kernel, the
     metrics against the NumPy oracle, the PDDM matrix and PairSim's pair
     probabilities on the card against the CPU; then the steady step of
-    ``pddm_model`` (sensors) and ``multitask_model``."""
+    ``pddm_model`` (sensors) and ``multitask_model``.  Returns the last
+    checkpoint of each ``pddm_model`` run by modality."""
     import torch
     from multimodal_similarity_tpu_torch.ops.kernels import (
         LAUNCHES, reset_launch_counts)
@@ -2353,7 +2378,7 @@ def pair_phase(root, steady_root):
     write_pair_synthetic(pair_root)
     none = dict.fromkeys(LAUNCHES, 0)
     keys = ("events", "labels", "mask")
-    steady = {}
+    steady, ckpts = {}, {}
     for feat, n_input in (("sensors", 8), ("segment", 357)):
         tag = f"pddm-{feat}"
         cfg = pair_cfg(pair_root, f"smoke_{tag}", feat=feat, n_input=n_input)
@@ -2361,6 +2386,8 @@ def pair_phase(root, steady_root):
             pair_root, tag, pddm_model.train, cfg, expect_val_loss=False,
             encoder=lambda m: m.encoder)
         expect_launches(tag, launches, none)
+        ckpts[feat] = os.path.join(res.result_dir,
+                                   f"{cfg.name}.ckpt-{res.step}")
         vals = [json.loads(line) for line in
                 open(os.path.join(res.result_dir, "metrics.jsonl"))]
         check_pddm_matrix(tag, res, exp, cfg,
@@ -2415,6 +2442,368 @@ def pair_phase(root, steady_root):
     torch.cuda.empty_cache()
     print(f"[pair] steady state (s a loader draw) {json.dumps(times)}; pair "
           f"phase {time.time() - t_phase:.1f} s", flush=True)
+    return ckpts
+
+
+# ---------------------------------------------------------------------------
+# the multimodal flagship
+# ---------------------------------------------------------------------------
+
+MM_FEATS = "resnet,sensors,segment"
+MM_MODALITIES = {"sensors": (8,), "segment": (357,)}
+# the scaled runs' PDDM output layers: weights x PDDM_SCALE, the
+# similar-class bias moved by PDDM_SHIFT, as tests/test_torch_multimodal.py
+# sets them; the pseudo-similarities then spread over [0, 1], where
+# one-epoch branches keep them near 0.5 and no far negative (under 0.2)
+# exists
+PDDM_SCALE, PDDM_SHIFT = 100.0, -3.0
+# the steady windows' directory: 12 train, 1 validation and 1 test session
+# of FULL_EVENTS events each, so 3 sessions hold 1020 real events and the
+# loader subsamples them to the 1000-event budget
+FULL_SESSIONS, FULL_EVENTS = (12, 1, 1), 340
+# their windows: the loader takes seconds a batch there
+FULL_WARM, FULL_DRAWS = 2, 8
+
+
+def add_modalities(root):
+    """Write sensors (8,) and segment (357,) features beside the resnet
+    maps of a synthetic Honda directory, for its sessions and frame labels
+    (class centres plus unit noise, seed 1), so that the directory holds
+    the flagship's three modalities.  Returns the bytes written."""
+    import pickle
+
+    import numpy as np
+    from multimodal_similarity_tpu_torch.data import MODALITY_SUFFIX
+    t0 = time.time()
+    rng = np.random.RandomState(1)
+    centers = {m: rng.randn(11, dim[0]) for m, dim in MM_MODALITIES.items()}
+    with open(os.path.join(root, "all_session.txt")) as f:
+        sessions = f.read().split()
+    written = 0
+    for sess in sessions:
+        with open(os.path.join(root, "labels", f"{sess}_goal.pkl"),
+                  "rb") as f:
+            frame_labels = pickle.load(f)["label"]
+        for m, (dim,) in MM_MODALITIES.items():
+            feats = (centers[m][frame_labels]
+                     + rng.randn(len(frame_labels), dim)).astype(np.float32)
+            np.save(os.path.join(root, "features",
+                                 sess + MODALITY_SUFFIX[m]), feats)
+            written += feats.nbytes
+    print(f"[multimodal] sensors (8,) and segment (357,) features of "
+          f"{len(sessions)} sessions written beside the resnet maps of "
+          f"{root}: {written} bytes in {time.time() - t0:.2f} s", flush=True)
+    return written
+
+
+def write_full_budget(root):
+    """A Honda directory whose 3-session batches fill the flagship's
+    1000-event budget with real events: FULL_SESSIONS (train, validation,
+    test) sessions of FULL_EVENTS foreground events (raw labels 1-10) of
+    MIN_LENGTH + 1 frames, the shortest the loader keeps, each frame a
+    resnet 8x8x1536 map, sensors (8,) and segment (357,) features: class
+    centres plus unit-normal noise (seed 2).  A resnet frame's noise is
+    one of 256 maps drawn once, so that writing costs a gather and an add a
+    frame.  Returns the bytes written."""
+    import pickle
+
+    import numpy as np
+    from multimodal_similarity_tpu_torch.data import (
+        MIN_LENGTH, MODALITY_SUFFIX)
+    from numpy.lib.format import open_memmap
+    t0 = time.time()
+    rng = np.random.RandomState(2)
+    dims = {"resnet": (8, 8, 1536), **MM_MODALITIES}
+    centers = {m: rng.randn(11, *d).astype(np.float32)
+               for m, d in dims.items()}
+    pool = rng.randn(256, *dims["resnet"]).astype(np.float32)
+    length = MIN_LENGTH + 1
+    sessions = [f"2018{i:08d}" for i in range(sum(FULL_SESSIONS))]
+    for sub in ("features", "labels"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    written = 0
+    for sess in sessions:
+        raw = rng.randint(1, 11, size=FULL_EVENTS)
+        frame_labels = np.repeat(raw, length)
+        frames = frame_labels.shape[0]
+        feat = os.path.join(root, "features", sess)
+        out = open_memmap(feat + MODALITY_SUFFIX["resnet"], mode="w+",
+                          dtype=np.float32,
+                          shape=(frames,) + dims["resnet"])
+        for i in range(0, frames, 256):
+            lab = frame_labels[i:i + 256]
+            out[i:i + len(lab)] = (centers["resnet"][lab]
+                                   + pool[rng.randint(256, size=len(lab))])
+        out.flush()
+        written += out.nbytes
+        del out
+        for m, dim in MM_MODALITIES.items():
+            feats = (centers[m][frame_labels]
+                     + rng.randn(frames, *dim)).astype(np.float32)
+            np.save(feat + MODALITY_SUFFIX[m], feats)
+            written += feats.nbytes
+        with open(os.path.join(root, "labels", f"{sess}_goal.pkl"),
+                  "wb") as f:
+            pickle.dump({"label": frame_labels,
+                         "s": np.arange(0, frames + 1, length),
+                         "G": raw}, f)
+    n_train, n_val, _ = FULL_SESSIONS
+    for split, ids in (("all", sessions), ("train", sessions[:n_train]),
+                       ("val", sessions[n_train:n_train + n_val]),
+                       ("test", sessions[n_train + n_val:])):
+        with open(os.path.join(root, f"{split}_session.txt"), "w") as f:
+            f.write("\n".join(ids))
+    print(f"[multimodal] full-budget directory: {len(sessions)} sessions "
+          f"of {FULL_EVENTS} events of {length} frames (resnet 8x8x1536, "
+          f"sensors (8,), segment (357,)), {written} bytes written in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    return written
+
+
+def scaled_branches(ckpts, out_dir):
+    """Copies of the ``pddm_model`` checkpoints ``ckpts`` with each PDDM
+    output layer's weights times PDDM_SCALE and its similar-class bias
+    moved by PDDM_SHIFT."""
+    import torch
+    out = {}
+    for feat, path in ckpts.items():
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        model = saved["model"]
+        model["pddm.score.s.weight"] = (model["pddm.score.s.weight"]
+                                        * PDDM_SCALE)
+        model["pddm.score.s.bias"] = (model["pddm.score.s.bias"]
+                                      + torch.tensor([0.0, PDDM_SHIFT]))
+        out[feat] = os.path.join(out_dir, f"scaled_{feat}.ckpt")
+        torch.save(saved, out[feat])
+    return out
+
+
+def mm_cfg(root, name, ckpts, **kw):
+    """scripts/train_multimodal_model.sh: full_width_cfg's ConvRTSN,
+    lambda_multimodal 0.1 from epoch 0, budget 1000, 3 sessions a batch,
+    200 triplets, 5 negatives, --label_num 9, --no_joint,
+    --multimodal_select random, the branches from ``ckpts``; 1 epoch."""
+    args = dict(feat=MM_FEATS, lambda_multimodal=0.1, multimodal_epochs=0,
+                num_negative=5, triplet_per_batch=200, label_num=9,
+                max_epochs=1, no_joint=True, multimodal_select="random",
+                sensors_path=ckpts["sensors"], segment_path=ckpts["segment"])
+    args.update(kw)
+    return full_width_cfg(root, name, **args)
+
+
+def mm_experiment(root, tag, cfg, modalities):
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+    exp = HondaExperiment(cfg, modalities=modalities,
+                          result_dir=os.path.join(root, f"r_{tag}"),
+                          supports_int8=True)
+    exp.close()
+    return exp
+
+
+def check_mm_records(tag, res, multimodal, structure=False):
+    """On a flagship path, the run's triplet, hard and structure counts a
+    step, and hard triplets in the run (and structure triplets, where
+    ``structure``).  Returns the structure counts."""
+    recs = [json.loads(line) for line in
+            open(os.path.join(res.result_dir, "metrics.jsonl"))]
+    steps = [r for r in recs if "loss" in r]
+    if not multimodal:
+        return []
+    counts = {k: [r[k] for r in steps]
+              for k in ("triplet_count", "hard_count", "struct_count")}
+    print(f"[{tag}] per step {json.dumps(counts)}", flush=True)
+    if not sum(counts["hard_count"]):
+        fail(f"{tag}: no hard triplet in the run")
+    if structure and not sum(counts["struct_count"]):
+        fail(f"{tag}: no structure triplet in the run")
+    return counts["struct_count"]
+
+
+def check_mm_similarity_and_miner(models, cfg, exp):
+    """On one loader batch of ``exp``, for each trained flagship model of
+    ``models`` (name -> (model, tolerance)): the fused PDDM similarity on
+    the card against the CPU (within its tolerance), and the row-wise hard
+    + structure miner on the card against the CPU on that similarity, the
+    batch's labels and mask and the same Gumbel draws, index-equal; then
+    the miner so on a symmetric uniform similarity.  Returns each
+    similarity's range over the batch's real events."""
+    import copy
+
+    import torch
+    from multimodal_similarity_tpu_torch.ops import mining
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        multimodal_model)
+
+    batches = exp.loader.epoch(max_batches=1)
+    try:
+        batch = next(batches)
+    finally:
+        batches.close()
+    n = int(batch["num_events"])
+    x2, x3 = (torch.from_numpy(batch[k]) for k in ("events2", "events3"))
+    sims, ranges = [], {}
+    for name, (model, tol) in models.items():
+        sim = multimodal_model.fused_similarity(model, x2.cuda(), x3.cuda())
+        sim_cpu = multimodal_model.fused_similarity(
+            copy.deepcopy(model).cpu(), x2, x3)
+        err = float((sim.cpu() - sim_cpu).abs().max())
+        real = sim[:n, :n]
+        lo, hi = ranges[name] = (float(real.min()), float(real.max()))
+        print(f"[multimodal] {name} PDDM similarity [{sim.shape[0]}, "
+              f"{sim.shape[1]}] card vs CPU max |diff| {err:.3g} (tolerance "
+              f"{tol:g}); range over the {n} real events [{lo:.6f}, "
+              f"{hi:.6f}], under 0.2: "
+              f"{float((real < 0.2).float().mean()):.4f}, over 0.8: "
+              f"{float((real > 0.8).float().mean()):.4f}", flush=True)
+        if not bool(torch.isfinite(sim).all()) or err > tol:
+            fail(f"multimodal: the {name} PDDM similarity on the card "
+                 "differs from the CPU's")
+        sims.append((name, sim))
+
+    hard, struct = cfg.triplet_per_batch, cfg.triplet_per_batch // 2
+    labels = torch.from_numpy(batch["labels"]).cuda()
+    mask = torch.from_numpy(batch["mask"]).cuda()
+    margins = torch.rand(8, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    spread = torch.rand(sims[0][1].shape, generator=gen, device="cuda")
+    real_draw = mining._draw_structure_gumbels
+    for name, s in sims + [("uniform", 0.5 * (spread + spread.T))]:
+        draws = real_draw(hard, struct, s.shape[0], gen,
+                          torch.device("cuda"))
+        outs = []
+        try:
+            for dev in (torch.device("cuda"), torch.device("cpu")):
+                mining._draw_structure_gumbels = (
+                    lambda *a, dev=dev: tuple(g.to(dev) for g in draws))
+                outs.append(mining.mine_hard_structure_triplets_rowwise(
+                    lambda rows, s=s.to(dev): s[rows], labels.to(dev),
+                    margins.to(dev), None, hard, struct, 0.8, 0.2,
+                    valid=mask.to(dev)))
+        finally:
+            mining._draw_structure_gumbels = real_draw
+        for field in outs[0]._fields:
+            if not torch.equal(getattr(outs[0], field).cpu(),
+                               getattr(outs[1], field)):
+                fail(f"multimodal: the structure miner's {field} on the "
+                     f"{name} similarity differs between card and CPU")
+        print(f"[multimodal] structure miner on the {name} similarity, "
+              f"card vs CPU index-equal: {int(outs[1].hard_mask.sum())} "
+              f"hard and {int(outs[1].struct_mask.sum())} structure "
+              f"triplets of {hard} / {struct}", flush=True)
+    return ranges
+
+
+def multimodal_phase(root, ckpts):
+    """The multimodal flagship at the width of
+    scripts/train_multimodal_model.sh, 1 epoch each with random core
+    weights and the branches of phase 13's ``pddm_model`` checkpoints
+    (``ckpts``): ``multimodal_model`` on the host miners, with
+    --device_mining (f32, and --int8_features), the hard-only ablation and
+    the weak trainer (--multimodal_select confidence, resnet and sensors);
+    then the host path and --device_mining with the branches' PDDM output
+    layers scaled, so that the structure term fires.  Checks finite
+    losses, hard triplets on every flagship path and structure triplets on
+    the scaled ones, no ``csrc/`` launch, the metrics against the NumPy
+    oracle, the fused similarity and the structure miner card vs CPU; then
+    the steady step of the host path and of --device_mining on a
+    directory whose batches fill the event budget."""
+    import random
+    import shutil
+
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import LAUNCHES
+    from multimodal_similarity_tpu_torch.train.steps import (
+        embed_in_chunks, make_embed_fn)
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        multimodal_model, multimodal_model_hardonly, multimodal_model_weak)
+    from multimodal_similarity_tpu_torch.train.trainers.pddm_model import (
+        loader_batches)
+
+    t_phase = time.time()
+    add_modalities(root)
+    scaled = scaled_branches(ckpts, root)
+    none = dict.fromkeys(LAUNCHES, 0)
+    mm = multimodal_model.train
+    device_mining = functools.partial(mm, device_mining=True)
+    runs = (
+        # tag, trainer, config, branches
+        ("mm-host", mm, {}, ckpts),
+        ("mm-device", device_mining, {}, ckpts),
+        ("mm-device-int8", device_mining, {"int8_features": True}, ckpts),
+        ("mm-hardonly", multimodal_model_hardonly.train, {}, ckpts),
+        ("mm-weak", multimodal_model_weak.train,
+         {"feat": "resnet,sensors", "multimodal_select": "confidence"},
+         ckpts),
+        ("mm-host-struct", mm, {}, scaled),
+        ("mm-device-struct", device_mining, {}, scaled))
+    structs, trained = {}, {}
+    for tag, train_fn, kw, branches in runs:
+        cfg = mm_cfg(root, f"smoke_{tag}", branches, **kw)
+        res, launches, _, _, _, _ = drive_trainer(
+            root, tag, train_fn, cfg, expect_val_loss=False,
+            encoder=lambda m: m["modality_core"])
+        expect_launches(tag, launches, none)
+        structs[tag] = check_mm_records(tag, res, tag != "mm-weak",
+                                        structure=branches is scaled)
+        if tag in ("mm-host", "mm-device", "mm-device-struct"):
+            trained[tag] = (res, cfg, branches)
+        del res
+
+    modalities = MM_FEATS.split(",")
+    cfg = trained["mm-device"][1]
+    ranges = check_mm_similarity_and_miner(
+        {"fused": (trained["mm-device"][0].model, PAIR_PROB_TOL),
+         # the scaled output layer scales the logits' rounding differences
+         "fused-scaled": (trained.pop("mm-device-struct")[0].model,
+                          PAIR_PROB_TOL * PDDM_SCALE)},
+        cfg, mm_experiment(root, "mm-check", cfg, modalities))
+    print(f"[multimodal] structure triplets a run: "
+          f"{json.dumps({k: sum(v) for k, v in structs.items()})}; fused "
+          f"similarity ranges {json.dumps(ranges)}", flush=True)
+
+    # steady state on batches that fill the budget
+    full_root = os.path.join(root, "full")
+    write_full_budget(full_root)
+    times = {}
+    device = torch.device("cuda")
+    for tag in ("mm-host", "mm-device"):
+        res, cfg, branches = trained.pop(tag)
+        exp = mm_experiment(full_root, f"steady-{tag}",
+                            mm_cfg(full_root, f"steady_{tag}", branches,
+                                   label_num=93), modalities)
+        lr = cfg.learning_rate
+        if tag == "mm-host":
+            dist_dict = multimodal_model.init_dist_dict(
+                embed_in_chunks(make_embed_fn(res.model["modality_core"]),
+                                exp.val_feats, device),
+                exp.val_labels, cfg.metric)
+            run = multimodal_model.make_host_step(
+                res.model, res.optimizer, cfg, device, dist_dict,
+                random.Random(0), np.random.RandomState(0))
+            keys = ("events", "events2", "events3")
+
+            def step(b, run=run):
+                return run(b, lr)
+        else:
+            fused = multimodal_model.make_mm_fused_step(
+                res.model, res.optimizer, cfg,
+                torch.Generator(device="cuda").manual_seed(0))
+            cm = multimodal_model.margin_table({0: [0.5]}, device)
+            keys = ("events", "events2", "events3", "labels", "mask")
+
+            def step(b, fused=fused, cm=cm):
+                return fused(b["events"], b["events2"], b["events3"],
+                             b["labels"], b["mask"], cm, 1.0, lr)
+        times[tag] = steady_step(tag, cfg, keys, step, loader_batches(exp),
+                                 FULL_WARM, FULL_DRAWS)
+        del res, step, exp
+    shutil.rmtree(full_root)
+    torch.cuda.empty_cache()
+    print(f"[multimodal] steady state (s a loader draw) "
+          f"{json.dumps(times)}; multimodal phase "
+          f"{time.time() - t_phase:.1f} s", flush=True)
 
 
 def main():
@@ -2473,7 +2862,8 @@ def main():
         launches = trainer_phase(root, steady_root)
         base_model_phase(root, steady_root)
         cub = cub_phase(root)
-        pair_phase(root, steady_root)
+        ckpts = pair_phase(root, steady_root)
+        multimodal_phase(root, ckpts)
     # each batch-hard kernel's launches on the trainers' paths (the Honda
     # batch-hard trainer, and base_CUB --loss batchhard, which takes K1);
     # one that neither path's gate took is counted on the mining path,

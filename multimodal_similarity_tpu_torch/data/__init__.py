@@ -11,6 +11,7 @@ from multimodal_similarity_tpu_torch.data.datasets import (
     load_validation_set,
     modality_suffix,
     prepare_dataset,
+    prepare_multimodal_dataset,
 )
 from multimodal_similarity_tpu_torch.data.honda import (
     HONDA_NUM2LABELS,
@@ -30,8 +31,9 @@ from multimodal_similarity_tpu_torch.data.tsn import (
 )
 
 __all__ = [
-    "prepare_dataset", "load_data_and_label", "load_validation_set",
-    "modality_suffix", "SessionBatchLoader", "generate_synthetic_honda",
+    "prepare_dataset", "prepare_multimodal_dataset", "load_data_and_label",
+    "load_validation_set", "modality_suffix", "SessionBatchLoader",
+    "generate_synthetic_honda",
     "tsn_prepare_input", "tsn_prepare_input_test", "LABEL_TRANSFER",
     "MIN_LENGTH", "MAX_LENGTH", "MIN_LENGTH_BACKGROUND", "MODALITY_SUFFIX",
     "HONDA_NUM2LABELS", "STIMULI_NUM2LABELS", "load_cub",

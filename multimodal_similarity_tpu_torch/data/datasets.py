@@ -43,6 +43,17 @@ def prepare_dataset(data_dir: str, sessions: Sequence[str], feat: str,
             for sess in sessions]
 
 
+def prepare_multimodal_dataset(data_dir: str, sessions: Sequence[str],
+                               feat_list: Sequence[str],
+                               label_dir: Optional[str] = None,
+                               label_type: str = "goal") -> List[List[str]]:
+    """session ids -> [[feat_path per modality ..., label_path]]."""
+    return [[os.path.join(data_dir, sess + modality_suffix(feat))
+             for feat in feat_list]
+            + [os.path.join(label_dir, f"{sess}_{label_type}.pkl")]
+            for sess in sessions]
+
+
 def load_data_and_label(
     feat_path: str,
     label_path: str,

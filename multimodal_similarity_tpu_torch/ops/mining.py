@@ -12,6 +12,12 @@ Two tiers, as in the JAX package's ``ops/mining.py``:
    from an explicit ``torch.Generator`` and takes the first maximum, as
    ``jnp.argmax`` does; fed the JAX draws, :func:`_mine` picks the same
    indices.
+3. **Hard + structure miners** (``mine_hard_structure_triplets`` and its
+   row-wise form): hard positives and negatives from a pseudo-similarity,
+   and structure triplets with per-class margins, shape-static with masks.
+   Four Gumbel arrays (anchors, hard positives, hard negatives, far
+   negatives) come from one draw, ``_draw_structure_gumbels``, in the
+   order of the JAX miner's ``split(key, 4)``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
 
 _NEG_INF = -1e30
+_POS_INF = 1e30
 
 
 class MinedTriplets(NamedTuple):
@@ -38,18 +45,23 @@ class MinedTriplets(NamedTuple):
     active_count: torch.Tensor  # scalar: mean admissible negatives a pair
 
 
+def _gumbel(shape, generator: Optional[torch.Generator], device
+            ) -> torch.Tensor:
+    """Standard Gumbel draws -log(-log(U)) of ``shape``; U in [tiny, 1) as
+    ``jax.random.gumbel`` draws it."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_(
+        min=torch.finfo(torch.float32).tiny)))
+
+
 def _draw_gumbels(num_pairs: int, n: int, num_negative: int,
                   generator: Optional[torch.Generator], device
                   ) -> Tuple[torch.Tensor, torch.Tensor,
                              Sequence[torch.Tensor]]:
-    """Standard Gumbel draws -log(-log(U)) for the anchor, positive and
-    each negative categorical over [num_pairs, n]; U in [tiny, 1) as
-    ``jax.random.gumbel`` draws it."""
-    tiny = torch.finfo(torch.float32).tiny
-
+    """Standard Gumbel draws for the anchor, positive and each negative
+    categorical over [num_pairs, n]."""
     def one():
-        u = torch.rand((num_pairs, n), generator=generator, device=device)
-        return -torch.log(-torch.log(u.clamp_(min=tiny)))
+        return _gumbel((num_pairs, n), generator, device)
 
     return one(), one(), [one() for _ in range(num_negative)]
 
@@ -155,6 +167,107 @@ def mine_semihard_triplets_from_embeddings(
     return _mine(labels, valid,
                  lambda a: pairwise_distance(emb[a], emb, metric), gumbels,
                  triplet_per_batch, alpha, num_negative)
+
+
+class MinedMultimodal(NamedTuple):
+    """Fixed-size hard + structure triplets mined from pseudo-similarities."""
+
+    hard: torch.Tensor          # [H, 3] anchor / hard-pos / hard-neg
+    hard_mask: torch.Tensor     # [H] float32
+    struct: torch.Tensor        # [S, 3] anchor / hard-neg / far-neg
+    struct_mask: torch.Tensor   # [S] float32
+    margins: torch.Tensor       # [S] the struct group's margins
+
+
+def _draw_structure_gumbels(hard_budget: int, struct_rows: int, n: int,
+                            generator: Optional[torch.Generator], device
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Standard Gumbel draws for the anchor, hard-positive and
+    hard-negative categoricals over [hard_budget, n] and the far-negative
+    one over [struct_rows, n], in that order."""
+    return tuple(_gumbel((rows, n), generator, device) for rows in
+                 (hard_budget, hard_budget, hard_budget, struct_rows))
+
+
+def mine_hard_structure_triplets_rowwise(
+        score_rows_fn: Callable[[torch.Tensor], torch.Tensor],
+        labels: torch.Tensor, class_margins: torch.Tensor,
+        generator: Optional[torch.Generator], hard_budget: int,
+        struct_budget: int, threshold_up: float = 0.8,
+        threshold_down: float = 0.2,
+        valid: Optional[torch.Tensor] = None) -> MinedMultimodal:
+    """Hard + structure mining on the device, with the pseudo-similarity
+    rows of the sampled anchors only: ``score_rows_fn(anchors)`` gives
+    their [H, N] rows, never [N, N].
+
+    ``hard_budget`` anchors, drawn uniformly (with replacement) from the
+    valid foreground rows; for each, a hard positive (a uniform same-label
+    row with similarity under ``threshold_down``, else the least similar
+    same-label row) and a hard negative (a uniform other-label row over
+    ``threshold_up``, else the most similar one).  A hard triplet is masked
+    out when its anchor has no positive or no negative.  The first
+    ``struct_budget`` anchors also get a structure triplet (anchor, hard
+    negative, far negative): a uniform row of the hard negative's label
+    with similarity under ``threshold_down``, masked out when there is
+    none; its margin is ``class_margins[label of the far negative]`` (an
+    index past the table takes its last entry, as a JAX gather clamps).
+    ``valid`` rows are neither anchors nor picked.  Nothing is read back
+    to the host."""
+    labels = labels.reshape(-1)
+    n = labels.shape[0]
+    device = labels.device
+    valid_b = (torch.ones(n, dtype=torch.bool, device=device)
+               if valid is None else valid.reshape(-1).to(torch.bool))
+    s = min(struct_budget, hard_budget)
+    g_a, g_p, g_n, g_f = _draw_structure_gumbels(hard_budget, s, n,
+                                                 generator, device)
+    foreground = (labels > 0) & valid_b
+    anchors = _categorical(g_a, foreground.expand(hard_budget, n))
+
+    sim_a = score_rows_fn(anchors).float()                       # [H, N]
+    same_rows = labels[anchors][:, None] == labels[None, :]
+    notself = anchors[:, None] != torch.arange(n, device=device)
+    same_a = same_rows & notself & valid_b
+    diff_a = ~same_rows & valid_b
+
+    hp_mask = same_a & (sim_a < threshold_down)
+    hard_pos = torch.where(
+        hp_mask.any(dim=1), _categorical(g_p, hp_mask),
+        torch.argmin(torch.where(same_a, sim_a,
+                                 torch.full_like(sim_a, _POS_INF)), dim=1))
+    hn_mask = diff_a & (sim_a > threshold_up)
+    hard_neg = torch.where(
+        hn_mask.any(dim=1), _categorical(g_n, hn_mask),
+        torch.argmax(torch.where(diff_a, sim_a,
+                                 torch.full_like(sim_a, -_POS_INF)), dim=1))
+    hard_mask = (foreground[anchors] & same_a.any(dim=1)
+                 & diff_a.any(dim=1)).float()
+    hard = torch.stack([anchors, hard_pos, hard_neg], dim=1)
+
+    s_hn = hard_neg[:s]
+    fn_mask = ((labels[None, :] == labels[s_hn][:, None])
+               & (sim_a[:s] < threshold_down) & valid_b)         # [S, N]
+    far_neg = _categorical(g_f, fn_mask)
+    struct_mask = hard_mask[:s] * fn_mask.any(dim=1).float()
+    margin_idx = labels[far_neg].long().clamp(max=class_margins.shape[0] - 1)
+    return MinedMultimodal(
+        hard=hard, hard_mask=hard_mask,
+        struct=torch.stack([anchors[:s], s_hn, far_neg], dim=1),
+        struct_mask=struct_mask,
+        margins=class_margins[margin_idx] * struct_mask)
+
+
+def mine_hard_structure_triplets(
+        sim_prob: torch.Tensor, labels: torch.Tensor,
+        class_margins: torch.Tensor, generator: Optional[torch.Generator],
+        hard_budget: int, struct_budget: int, threshold_up: float = 0.8,
+        threshold_down: float = 0.2,
+        valid: Optional[torch.Tensor] = None) -> MinedMultimodal:
+    """:func:`mine_hard_structure_triplets_rowwise` on a whole [N, N]
+    pseudo-similarity matrix (it reads the sampled anchors' rows)."""
+    return mine_hard_structure_triplets_rowwise(
+        lambda rows: sim_prob[rows], labels, class_margins, generator,
+        hard_budget, struct_budget, threshold_up, threshold_down, valid)
 
 
 def _shuffled_classes(np_lab: np.ndarray, rng: random.Random):
