@@ -119,7 +119,28 @@ Phases, each fatal on failure (no error is caught):
    the structure miner on the card against the CPU on the same similarity
    and Gumbel draws (index-equal), and the steady step of the host path
    and of --device_mining on a directory whose batches fill the 1000-event
-   budget with real events (``write_full_budget``).
+   budget with real events (``write_full_budget``, kept for phase 15);
+15. slice 6a at the scripts' widths on phase 14's three-modality
+   directory, 1 epoch each with random weights: ``multitask_dcca`` and
+   ``multitask_cross_prediction`` (ConvRTSN emb_dim 128, sensors and
+   segment RTSN towers of emb_dim 32 restored from phase 13's checkpoints
+   and frozen, 200 triplets, --label_num 9, lambda_multimodal 0.1),
+   ``modality_hallucination`` and ``modality_hallucination_weak``
+   (--label_num 93), ``cross_prediction`` (resnet -> mean-pooled sensors)
+   and ``base_model_classifier`` (ConvTSN, emb_dim 256, 7 outputs);
+   finite losses, the DCCA term in [-64, 0), the MSE and hallucination
+   terms positive, the frozen towers unchanged and the core moved, no
+   launch of any ``csrc/`` kernel, val mAP and val accuracy against the
+   NumPy oracle, ``dcca_loss`` card vs CPU on the trained core's
+   unsupervised embeddings of a full batch (600 x 128 against 600 x 32;
+   DCCA_* tolerances) with its time, ``evaluate_model`` (the DCCA core,
+   and --use_output on the classifier) and ``evaluate_late_fusion`` (phase
+   13's sensors checkpoint, and --use_output on the cross_prediction one)
+   over the full-budget directory's 340 test events on the card against
+   the CPU (embeddings EVAL_EMB_RTOL, metrics PAIR_METRIC_TOL), and the
+   steady step of ``multitask_dcca``, ``modality_hallucination`` and
+   ``cross_prediction`` on the full-budget directory, which it then
+   removes.
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -2372,6 +2393,8 @@ def pair_phase(root, steady_root):
         multitask_model, pairsim_model, pddm_model)
     from multimodal_similarity_tpu_torch.train.trainers._honda import (
         HondaExperiment)
+    from multimodal_similarity_tpu_torch.train.trainers._loop import (
+        loader_batches)
 
     t_phase = time.time()
     pair_root = os.path.join(root, "pair")
@@ -2402,7 +2425,7 @@ def pair_phase(root, steady_root):
             step = pddm_model.make_pddm_step(
                 res.model, res.optimizer, cfg,
                 torch.Generator(device="cuda").manual_seed(0))
-            steady["pddm_model"] = (cfg, step, pddm_model.loader_batches(exp))
+            steady["pddm_model"] = (cfg, step, loader_batches(exp))
 
     kw = {"lambda_ver": 0.1, "triplet_select": "facenet",
           "triplet_per_batch": 200, "max_epochs": 1}
@@ -2414,7 +2437,7 @@ def pair_phase(root, steady_root):
     step = multitask_model.make_multitask_step(
         res.model, res.optimizer, cfg,
         torch.Generator(device="cuda").manual_seed(0))
-    steady["multitask_model"] = (cfg, step, pddm_model.loader_batches(
+    steady["multitask_model"] = (cfg, step, loader_batches(
         steady_experiment(steady_root, "multitask", **kw)))
 
     cfg = pair_cfg(pair_root, "smoke_pairsim", feat="sensors", n_input=8,
@@ -2707,9 +2730,9 @@ def multimodal_phase(root, ckpts):
     the scaled ones, no ``csrc/`` launch, the metrics against the NumPy
     oracle, the fused similarity and the structure miner card vs CPU; then
     the steady step of the host path and of --device_mining on a
-    directory whose batches fill the event budget."""
+    directory whose batches fill the event budget.  Returns that
+    directory (phase 15 reads it too, and removes it)."""
     import random
-    import shutil
 
     import numpy as np
     import torch
@@ -2718,7 +2741,7 @@ def multimodal_phase(root, ckpts):
         embed_in_chunks, make_embed_fn)
     from multimodal_similarity_tpu_torch.train.trainers import (
         multimodal_model, multimodal_model_hardonly, multimodal_model_weak)
-    from multimodal_similarity_tpu_torch.train.trainers.pddm_model import (
+    from multimodal_similarity_tpu_torch.train.trainers._loop import (
         loader_batches)
 
     t_phase = time.time()
@@ -2763,7 +2786,8 @@ def multimodal_phase(root, ckpts):
           f"{json.dumps({k: sum(v) for k, v in structs.items()})}; fused "
           f"similarity ranges {json.dumps(ranges)}", flush=True)
 
-    # steady state on batches that fill the budget
+    # steady state on batches that fill the budget; the directory is
+    # phase 15's too, which removes it
     full_root = os.path.join(root, "full")
     write_full_budget(full_root)
     times = {}
@@ -2799,10 +2823,477 @@ def multimodal_phase(root, ckpts):
         times[tag] = steady_step(tag, cfg, keys, step, loader_batches(exp),
                                  FULL_WARM, FULL_DRAWS)
         del res, step, exp
-    shutil.rmtree(full_root)
     torch.cuda.empty_cache()
     print(f"[multimodal] steady state (s a loader draw) "
           f"{json.dumps(times)}; multimodal phase "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    return full_root
+
+
+# ---------------------------------------------------------------------------
+# slice 6a: DCCA, cross-prediction, hallucination, classifier, evaluation
+# ---------------------------------------------------------------------------
+
+# the DCCA loss on the card against the CPU, both in f32 on the same
+# embeddings: the value within DCCA_VALUE_RTOL; each gradient within
+# DCCA_GRAD_RTOL of its largest entry, or within 4x the CPU's own f32 error
+# against float64 where that is larger (eigh's gradient divides by
+# eigenvalue gaps, so a near-degenerate covariance makes the f32 gradient
+# ill-conditioned in either place); in float64, card and CPU within
+# DCCA_F64_RTOL (value) and DCCA_GRAD_RTOL (gradients)
+DCCA_VALUE_RTOL, DCCA_GRAD_RTOL, DCCA_F64_RTOL = 1e-4, 1e-3, 1e-6
+# the evaluation CLIs' embeddings on the card against the CPU's, both f32
+# with TF32 off: the largest difference within EVAL_EMB_RTOL of the CPU
+# embeddings' largest entry (a 1536-deep reduction summed in another order)
+EVAL_EMB_RTOL = 1e-4
+# phase 15's full-budget windows: fewer draws than the flagship's (the
+# loader takes about 3.8 s a draw there)
+SLICE6_WARM, SLICE6_DRAWS = 2, 5
+
+
+def slice6_cfg(root, name, ckpts, **kw):
+    """scripts/train_multitask_dcca.sh, train_multitask_crosspredict.sh,
+    train_hallucination.sh, train_cross_prediction.sh and
+    train_base_classifier.sh as ``kw`` sets them, at full_width_cfg's
+    ConvRTSN width (lambda_multimodal 0.1 from epoch 0, 200 triplets,
+    keep_prob 0.5, Adam 1e-2), the branches from ``ckpts``; 1 epoch."""
+    args = dict(feat=MM_FEATS, lambda_multimodal=0.1, multimodal_epochs=0,
+                triplet_per_batch=200, label_num=9, max_epochs=1,
+                sensors_path=ckpts["sensors"], segment_path=ckpts["segment"])
+    args.update(kw)
+    return full_width_cfg(root, name, **args)
+
+
+def slice6_records(tag, res, keys):
+    """The run's step records: each of ``keys`` logged and finite at every
+    step.  Returns {key: [values]}."""
+    recs = [json.loads(line) for line in
+            open(os.path.join(res.result_dir, "metrics.jsonl"))]
+    steps = [r for r in recs if "loss" in r]
+    cols = {k: [r.get(k, math.nan) for r in steps] for k in keys}
+    print(f"[{tag}] per step " + json.dumps(
+        {k: [round(v, 6) for v in vals] for k, vals in cols.items()}),
+        flush=True)
+    for k, vals in cols.items():
+        if not vals or not all(math.isfinite(v) for v in vals):
+            fail(f"{tag}: no or a non-finite {k}")
+    return cols
+
+
+def drive_plain(root, tag, train_fn, cfg, keys):
+    """A trainer run without a retrieval validation, launch counts set to
+    0 just before it and read just after; finite ``keys`` at every step.
+    Returns (result, launches, step columns)."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+    reset_launch_counts()
+    t0 = time.time()
+    res = train_fn(cfg, result_dir=os.path.join(root, f"result_{tag}"))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"[{tag}] {res.step} steps in {time.time() - t0:.1f} s; metrics "
+          f"{json.dumps(res.metrics)}; launches {json.dumps(launches)}",
+          flush=True)
+    if res.step < 1:
+        fail(f"{tag}: the trainer took no step")
+    return res, launches, slice6_records(tag, res, keys)
+
+
+def slice6_step_times(runs, batch, iters=5):
+    """Each trainer's step alone on inputs already on the card, from the
+    full-budget loader batch ``batch``: ``multitask_dcca`` (the trainer's
+    1200 triplet rows, 200 triplets active, and 600 unsupervised rows of
+    three modalities), ``modality_hallucination`` (1200 rows of three
+    modalities) and ``cross_prediction`` (the 1000-event budget and its
+    mean-pooled sensors); ms a step from CUDA events around ``iters``
+    steps back to back after 2, the host's waits (cuSOLVER's) included."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        cross_prediction, modality_hallucination, multitask_dcca)
+    n = int(batch["num_events"])
+    x, x2, x3 = (torch.from_numpy(batch[k]).cuda()
+                 for k in ("events", "events2", "events3"))
+    out = {}
+    res, cfg = runs["dcca"]
+    tri_cap = 2 * cfg.triplet_per_batch
+    rs = np.random.RandomState(0)
+    tri = torch.from_numpy(rs.randint(0, n, 3 * tri_cap)).cuda()
+    mask = torch.zeros(tri_cap, device=x.device)
+    mask[: cfg.triplet_per_batch] = 1.0
+    u = torch.from_numpy(rs.permutation(n)[:3 * cfg.triplet_per_batch]).cuda()
+    step = multitask_dcca.make_dcca_step(res.model, res.optimizer, cfg)
+    out["dcca"] = call_ms(lambda: step(
+        x[tri], mask, x[u], x2[u], x3[u], cfg.lambda_multimodal,
+        cfg.learning_rate), iters=iters, warmup=2)
+    res, cfg = runs["hallucination"]
+    step = modality_hallucination.make_hallucination_step(
+        res.model, res.optimizer, cfg)
+    out["hallucination"] = call_ms(lambda: step(
+        x[tri], x2[tri], x3[tri], mask, cfg.learning_rate), iters=iters,
+        warmup=2)
+    res, cfg = runs["cross"]
+    step = cross_prediction.make_regression_step(res.model, res.optimizer,
+                                                 cfg)
+    # the mean-pooled sensors target of each event: its TSN segments'
+    # mean here (the loader pools the whole window; the shape is the same)
+    target = x2.mean(dim=1)
+    valid = torch.from_numpy(batch["mask"]).cuda()
+    out["cross"] = call_ms(lambda: step(x, target, valid, cfg.learning_rate),
+                           iters=iters, warmup=2)
+    print(f"[slice6] steps alone on the card (ms a step, CUDA events around "
+          f"{iters} steps back to back) {json.dumps(out)}", flush=True)
+    return out
+
+
+def slice6_experiment(root, tag, ckpts):
+    """``multitask_dcca``'s experiment on ``root``: three modalities, all
+    train sessions, the first --label_num 9 labeled."""
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+    exp = HondaExperiment(slice6_cfg(root, f"smoke_{tag}", ckpts),
+                          modalities=MM_FEATS.split(","),
+                          result_dir=os.path.join(root, f"r_{tag}"),
+                          limit_label_num=False)
+    exp.close()
+    return exp
+
+
+def first_batch(exp):
+    batches = exp.loader.epoch(max_batches=1)
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
+def check_dcca_on_card(model, cfg, batch):
+    """``dcca_loss`` of the trained core's unsupervised embeddings (the
+    trainer's 3 x triplet_per_batch events of the loader batch ``batch``,
+    eval mode) against the frozen sensors and segment towers' on the card
+    and on the CPU: value and gradients (DCCA_* tolerances), and its time
+    on the card, forward and backward."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.ops.losses import dcca_loss
+    from multimodal_similarity_tpu_torch.train.steps import (
+        embed_in_chunks, make_embed_fn)
+
+    cap = min(3 * cfg.triplet_per_batch, cfg.event_per_batch)
+    perm = np.random.RandomState(0).permutation(int(batch["num_events"]))[
+        :cap]
+    device = torch.device("cuda")
+    emb_u = embed_in_chunks(make_embed_fn(model["modality_core"],
+                                          cfg.normalized),
+                            batch["events"][perm], device)
+    deltas, times = {}, {}
+    for scope in ("modality_sensors", "modality_segment"):
+        emb_b = embed_in_chunks(make_embed_fn(model[scope], cfg.normalized),
+                                batch[{"modality_sensors": "events2",
+                                       "modality_segment": "events3"}[scope]]
+                                [perm], device)
+        out = {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                           ("cuda", torch.float64), ("cpu", torch.float64)):
+            a, b = (x.to(dev, dtype, copy=True).requires_grad_()
+                    for x in (emb_u, emb_b))
+            v = dcca_loss(a, b)
+            v.backward()
+            out[dev, dtype] = (float(v.detach()), a.grad.cpu().double(),
+                               b.grad.cpu().double())
+        card, cpu = out["cuda", torch.float32], out["cpu", torch.float32]
+        ref = out["cpu", torch.float64]
+        c64 = out["cuda", torch.float64]
+
+        def rel(x, y):
+            return float((x - y).abs().max() / y.abs().max())
+
+        d = {"value": abs(card[0] - cpu[0]) / abs(cpu[0]),
+             "grad_core": rel(card[1], cpu[1]),
+             "grad_branch": rel(card[2], cpu[2]),
+             "cpu_f32_vs_f64": [rel(cpu[1], ref[1]), rel(cpu[2], ref[2])],
+             "f64_value": abs(c64[0] - ref[0]) / abs(ref[0]),
+             "f64_grads": [rel(c64[1], ref[1]), rel(c64[2], ref[2])]}
+        deltas[scope] = d
+        print(f"[dcca] {scope}: [{cap}, {emb_u.shape[1]}] against "
+              f"[{cap}, {emb_b.shape[1]}]: value card {card[0]:.6f}, CPU "
+              f"{cpu[0]:.6f}; deltas {json.dumps(d)}", flush=True)
+        finite = all(bool(torch.isfinite(g).all()) for g in card[1:])
+        if finite != all(bool(torch.isfinite(g).all()) for g in cpu[1:]):
+            fail(f"dcca: {scope} gradients finite on one side only")
+        if not finite or not -64 <= card[0] < 0:
+            fail(f"dcca: {scope} value {card[0]} or its gradient not "
+                 "finite or out of range")
+        if d["value"] > DCCA_VALUE_RTOL:
+            fail(f"dcca: {scope} value differs between card and CPU")
+        for name, cpu_err in zip(("grad_core", "grad_branch"),
+                                 d["cpu_f32_vs_f64"]):
+            if d[name] > max(DCCA_GRAD_RTOL, 4 * cpu_err):
+                fail(f"dcca: {scope} {name} differs between card and CPU")
+        if d["f64_value"] > DCCA_F64_RTOL or \
+                max(d["f64_grads"]) > DCCA_GRAD_RTOL:
+            fail(f"dcca: {scope} float64 card and CPU differ")
+
+        a = emb_u.clone().requires_grad_()
+
+        def fwd_bwd(a=a, b=emb_b):
+            dcca_loss(a, b).backward()
+
+        times[scope] = call_ms(fwd_bwd)
+    print(f"[dcca] forward + backward on the card (ms a call: CUDA events "
+          f"around 20 calls back to back, the host's waits for cuSOLVER "
+          f"included) {json.dumps(times)}", flush=True)
+    return deltas, times
+
+
+def check_classifier_accuracy(res, cfg, root):
+    """The classifier's val_accuracy against the NumPy oracle: the share of
+    validation events whose card logits' argmax is the label."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+    exp = HondaExperiment(cfg, result_dir=os.path.join(root,
+                                                        "check_classifier"))
+    exp.close()
+    model = res.model.eval()
+    with torch.no_grad():
+        logits = torch.cat([model(torch.from_numpy(
+            exp.val_feats[i:i + 256]).cuda())[1]
+            for i in range(0, exp.val_feats.shape[0], 256)]).cpu().numpy()
+    acc = float(np.mean(np.argmax(logits, -1) == exp.val_labels.reshape(-1)))
+    print(f"[classifier] val_accuracy trainer {res.metrics['val_accuracy']}"
+          f", NumPy oracle on the card's logits {acc}", flush=True)
+    if logits.shape != (exp.val_feats.shape[0], 7) or \
+            not np.isfinite(logits).all() or \
+            acc != res.metrics["val_accuracy"]:
+        fail("classifier: val_accuracy differs from the oracle's")
+
+
+def check_eval_clis(root, runs, ckpts):
+    """``evaluate_model`` (the multitask_dcca core, and --use_output on the
+    classifier) and ``evaluate_late_fusion`` (phase 13's sensors
+    checkpoint, and --use_output on the cross_prediction checkpoint) on the
+    card and on the CPU, over the test session of ``root``: the embeddings
+    within EVAL_EMB_RTOL, mAP and Recall@1 within PAIR_METRIC_TOL."""
+    import numpy as np
+    from multimodal_similarity_tpu_torch.configs import EvalConfig
+    from multimodal_similarity_tpu_torch.eval import (
+        evaluate_late_fusion, evaluate_model)
+
+    def ckpt(tag):
+        res, cfg = runs[tag]
+        return os.path.join(res.result_dir, f"{cfg.name}.ckpt-{res.step}")
+
+    def widths(tag):
+        cfg = runs[tag][1]
+        return {k: getattr(cfg, k) for k in ("network", "num_seg", "emb_dim",
+                                             "n_input", "n_h", "n_w", "n_C")}
+
+    core = dict(model_path=ckpt("dcca"), variable_name="modality_core",
+                **widths("dcca"))
+    cases = {
+        "evaluate_model": (evaluate_model, dict(core)),
+        "evaluate_model-use_output": (evaluate_model, dict(
+            model_path=ckpt("classifier"), use_output=True,
+            **widths("classifier"))),
+        "late_fusion-sensors": (evaluate_late_fusion, dict(
+            core, feat="resnet,sensors", sensors_path=ckpts["sensors"])),
+        "late_fusion-use_output": (evaluate_late_fusion, dict(
+            core, feat="resnet,sensors", sensors_path=ckpt("cross"),
+            use_output=True)),
+    }
+    out = {}
+    for tag, (module, kw) in cases.items():
+        got, emb = {}, {}
+        for dev in ("cuda", "cpu"):
+            cfg = EvalConfig(DATA_ROOT=root, device=dev, **kw).resolve()
+            t0 = time.time()
+            r = module.run(cfg)
+            got[dev] = (r["mAP"], r["recall"][0], time.time() - t0)
+            emb[dev] = r["embeddings"]
+        err = float(np.abs(emb["cuda"] - emb["cpu"]).max()
+                    / np.abs(emb["cpu"]).max())
+        out[tag] = {**got, "events": emb["cpu"].shape[0], "emb_err": err}
+        print(f"[eval] {tag}: {emb['cpu'].shape[0]} test events, embeddings "
+              f"{emb['cpu'].shape[1]} wide; (mAP, Recall@1, s) card "
+              f"{got['cuda']}, CPU {got['cpu']}; embeddings card vs CPU "
+              f"{err:.3g} of their scale", flush=True)
+        if emb["cuda"].shape != emb["cpu"].shape or \
+                not np.isfinite(emb["cuda"]).all() or err > EVAL_EMB_RTOL:
+            fail(f"eval: {tag} embeddings on the card differ from the CPU")
+        if not all(math.isfinite(v) for v in got["cuda"][:2]) or any(
+                abs(a - b) > PAIR_METRIC_TOL
+                for a, b in zip(got["cuda"][:2], got["cpu"][:2])):
+            fail(f"eval: {tag} on the card differs from the CPU")
+    return out
+
+
+def slice6_phase(root, ckpts, full_root):
+    """Slice 6a at the scripts' widths, 1 epoch each with random weights on
+    phase 14's three-modality directory: ``multitask_dcca`` and
+    ``multitask_cross_prediction`` (--label_num 9, the frozen towers
+    restored from phase 13's ``pddm_model`` checkpoints),
+    ``modality_hallucination`` and ``modality_hallucination_weak``
+    (--label_num 93, keep_prob 0.5 on every branch), ``cross_prediction``
+    (resnet -> mean-pooled sensors) and ``base_model_classifier`` (ConvTSN,
+    emb_dim 256, 7 outputs).  Checks finite losses, the DCCA term in [-64,
+    0), the MSE and hallucination terms positive, the frozen towers
+    unchanged and the core moved, no ``csrc/`` launch, val mAP and val
+    accuracy against the NumPy oracle, ``dcca_loss`` card vs CPU on the
+    trained core's unsupervised embeddings, and the two evaluation CLIs on
+    the card against the CPU on the checkpoints just written, over the
+    test session of ``full_root``; then the
+    steady step of ``multitask_dcca``, ``modality_hallucination`` and
+    ``cross_prediction`` on ``full_root`` (batches of 1000 real events),
+    which it removes."""
+    import random
+    import shutil
+
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.data import mean_pool_input
+    from multimodal_similarity_tpu_torch.ops.kernels import LAUNCHES
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_model_classifier, cross_prediction, modality_hallucination,
+        modality_hallucination_weak, multitask_cross_prediction,
+        multitask_dcca)
+    from multimodal_similarity_tpu_torch.train.trainers._loop import (
+        loader_batches)
+
+    t_phase = time.time()
+    none = dict.fromkeys(LAUNCHES, 0)
+    device = torch.device("cuda")
+    runs = {}
+    frozen = ("modality_sensors", "modality_segment")
+    for tag, train_fn, mse in (("dcca", multitask_dcca.train, False),
+                               ("crosspredict",
+                                multitask_cross_prediction.train, True)):
+        cfg = slice6_cfg(root, f"smoke_{tag}", ckpts)
+        res, launches, _, _, _, _ = drive_trainer(
+            root, tag, train_fn, cfg, expect_val_loss=False,
+            encoder=lambda m: m["modality_core"])
+        expect_launches(tag, launches, none)
+        mul = slice6_records(tag, res, ("metric_loss", "mul_loss"))[
+            "mul_loss"]
+        if not all((v > 0) if mse else (-64 <= v < 0) for v in mul):
+            fail(f"{tag}: mul_loss {mul} out of range")
+        init = multitask_dcca.build_model(cfg, device, 8, 357, mse)
+        for scope, feat in zip(frozen, ("sensors", "segment")):
+            saved = torch.load(ckpts[feat], map_location="cuda",
+                               weights_only=True)["model"]
+            for k, v in res.model[scope].state_dict().items():
+                if not torch.equal(v, saved["encoder." + k]):
+                    fail(f"{tag}: frozen {scope}.{k} moved")
+        scopes = ("modality_core",) + (("modality_core_heads",) if mse
+                                       else ())
+        for scope in scopes:
+            if all(torch.equal(a, b) for a, b in zip(
+                    res.model[scope].parameters(),
+                    init[scope].parameters())):
+                fail(f"{tag}: {scope} did not move")
+        if not all(bool(torch.isfinite(p).all())
+                   for p in res.model.parameters()):
+            fail(f"{tag}: a non-finite parameter after training")
+        runs[tag] = (res, cfg)
+        del init
+    # on a full-budget batch: 600 distinct events, as in the trainer's
+    # steps on real sessions
+    full_batch = first_batch(slice6_experiment(full_root, "check", ckpts))
+    dcca_deltas, dcca_ms = check_dcca_on_card(
+        runs["dcca"][0].model, runs["dcca"][1], full_batch)
+
+    for tag, train_fn, feat in (
+            ("hallucination", modality_hallucination.train, MM_FEATS),
+            ("hallucination-weak", modality_hallucination_weak.train,
+             "resnet,sensors")):
+        cfg = slice6_cfg(root, f"smoke_{tag}", ckpts, feat=feat,
+                         label_num=93, sensors_path=None, segment_path=None)
+        res, launches, _, _, _, _ = drive_trainer(
+            root, tag, train_fn, cfg, expect_val_loss=False,
+            encoder=lambda m: m["modality_core"])
+        expect_launches(tag, launches, none)
+        hal = slice6_records(tag, res, ("metric_loss", "hal_loss"))[
+            "hal_loss"]
+        if not all(v > 0 for v in hal):
+            fail(f"{tag}: hal_loss {hal} not positive")
+        runs[tag] = (res, cfg)
+
+    cfg = slice6_cfg(root, "smoke_cross", ckpts, feat="resnet,sensors",
+                     sensors_path=None, segment_path=None, label_num=93,
+                     static_epochs=500)
+    res, launches, cols = drive_plain(root, "cross", cross_prediction.train,
+                                      cfg, ("mse",))
+    expect_launches("cross", launches, none)
+    if not (res.metrics["train_mse"] > 0
+            and res.metrics["train_mse"] == cols["mse"][-1]):
+        fail("cross: train_mse not the last step's positive MSE")
+    runs["cross"] = (res, cfg)
+
+    cfg = full_width_cfg(root, "smoke_classifier", network="convtsn",
+                         emb_dim=256, max_epochs=1, static_epochs=500)
+    res, launches, _ = drive_plain(root, "classifier",
+                                   base_model_classifier.train, cfg,
+                                   ("ce", "accuracy"))
+    expect_launches("classifier", launches, none)
+    check_classifier_accuracy(res, cfg, root)
+    runs["classifier"] = (res, cfg)
+    # on the full-budget directory's test session: 340 events
+    evals = check_eval_clis(full_root, runs, ckpts)
+    step_ms = slice6_step_times(runs, full_batch)
+    del full_batch
+
+    # steady state on batches that fill the budget
+    times = {}
+    for tag in ("dcca", "hallucination", "cross"):
+        res, cfg = runs.pop(tag)
+        lr = cfg.learning_rate
+        if tag == "cross":
+            exp = mm_experiment(full_root, f"steady-{tag}",
+                                slice6_cfg(full_root, f"steady_{tag}", ckpts,
+                                           feat="resnet,sensors",
+                                           label_num=93),
+                                ["resnet", "sensors"])
+            exp.loader.prepare_funcs[1] = mean_pool_input
+            step_fn = cross_prediction.make_regression_step(
+                res.model, res.optimizer, cfg)
+            keys = ("events", "events2", "mask")
+
+            def step(b, step_fn=step_fn):
+                return step_fn(b["events"], b["events2"].reshape(
+                    b["events2"].shape[0], -1), b["mask"], lr)
+        elif tag == "dcca":
+            exp = slice6_experiment(full_root, f"steady-{tag}", ckpts)
+            run = multitask_dcca.make_host_step(
+                res.model, res.optimizer, cfg, device, exp.labeled_sessions,
+                random.Random(0), np.random.RandomState(0),
+                min(3 * cfg.triplet_per_batch, exp.event_budget))
+            keys = ("events", "events2", "events3")
+
+            def step(b, run=run):
+                return run(b, lr, cfg.lambda_multimodal)
+        else:
+            exp = mm_experiment(full_root, f"steady-{tag}",
+                                slice6_cfg(full_root, f"steady_{tag}", ckpts,
+                                           label_num=93),
+                                MM_FEATS.split(","))
+            run = modality_hallucination.make_host_step(
+                res.model, res.optimizer, cfg, device, random.Random(0))
+            keys = ("events", "events2", "events3")
+
+            def step(b, run=run):
+                return run(b, lr)
+        times[tag] = steady_step(tag, cfg, keys, step, loader_batches(exp),
+                                 SLICE6_WARM, SLICE6_DRAWS)
+        del res, step, exp
+    del runs
+    shutil.rmtree(full_root)
+    torch.cuda.empty_cache()
+    print(f"[slice6] steady state (s a loader draw) {json.dumps(times)}; "
+          f"steps alone (ms) {json.dumps(step_ms)}; "
+          f"dcca deltas {json.dumps(dcca_deltas)}, ms {json.dumps(dcca_ms)};"
+          f" eval {json.dumps(evals)}; slice 6a phase "
           f"{time.time() - t_phase:.1f} s", flush=True)
 
 
@@ -2863,7 +3354,8 @@ def main():
         base_model_phase(root, steady_root)
         cub = cub_phase(root)
         ckpts = pair_phase(root, steady_root)
-        multimodal_phase(root, ckpts)
+        full_root = multimodal_phase(root, ckpts)
+        slice6_phase(root, ckpts, full_root)
     # each batch-hard kernel's launches on the trainers' paths (the Honda
     # batch-hard trainer, and base_CUB --loss batchhard, which takes K1);
     # one that neither path's gate took is counted on the mining path,

@@ -240,6 +240,57 @@ class TrainConfig(BaseConfig):
         p.add_argument("--loss", type=str, default="triplet")
 
 
+@dataclass
+class EvalConfig(BaseConfig):
+    """The evaluation CLIs' flags (the JAX ``EvalConfig``'s, same
+    defaults), plus ``--device`` (default ``cuda``)."""
+    model_path: Optional[str] = None
+    sensors_path: Optional[str] = None
+    variable_name: str = ""
+    feat: Union[str, List[str]] = "resnet"
+    network: str = "tsn"
+    preprocess_func: str = "mean"
+    use_output: bool = False
+    transfer: bool = True
+    num_seg: int = 3
+    emb_dim: int = 256
+    batch_size: int = 4
+    n_h: int = 8
+    n_w: int = 8
+    n_C: int = 20
+    n_input: int = 1536
+    label_type: str = "goal"
+    normalized: bool = True
+    reverse: bool = False
+    device: Optional[str] = None
+
+    @classmethod
+    def _add_args(cls, p: argparse.ArgumentParser) -> None:
+        super()._add_args(p)
+        p.add_argument("--model_path", type=str, default=None)
+        p.add_argument("--sensors_path", type=str, default=None)
+        p.add_argument("--variable_name", type=str, default="")
+        p.add_argument("--feat", type=str, default="resnet")
+        p.add_argument("--network", type=str, default="tsn")
+        p.add_argument("--preprocess_func", type=str, default="mean")
+        p.add_argument("--use_output", action="store_true")
+        p.add_argument("--no_transfer", dest="transfer", action="store_false")
+        p.set_defaults(transfer=True)
+        p.add_argument("--num_seg", type=int, default=3)
+        p.add_argument("--emb_dim", type=int, default=256)
+        p.add_argument("--batch_size", type=int, default=4)
+        p.add_argument("--n_h", type=int, default=8)
+        p.add_argument("--n_w", type=int, default=8)
+        p.add_argument("--n_C", type=int, default=20)
+        p.add_argument("--n_input", type=int, default=1536)
+        p.add_argument("--label_type", type=str, default="goal")
+        p.add_argument("--no_normalized", dest="normalized",
+                       action="store_false")
+        p.set_defaults(normalized=True)
+        p.add_argument("--reverse", action="store_true")
+        p.add_argument("--device", type=str, default=None)
+
+
 def write_configure_to_file(cfg, result_dir: str) -> None:
     """Config snapshot to <result_dir>/config.txt."""
     with open(os.path.join(result_dir, "config.txt"), "w") as fout:

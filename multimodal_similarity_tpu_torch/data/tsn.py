@@ -1,7 +1,8 @@
 """TSN segment sampling on the host (NumPy).
 
 Train time draws one random frame per segment; test time takes each
-segment's centre frame.
+segment's centre frame.  ``mean_pool_input`` pools a whole window instead
+(the cross-prediction trainer's regression target).
 """
 
 from __future__ import annotations
@@ -30,3 +31,12 @@ def tsn_prepare_input_test(n_seg: int, feat: np.ndarray) -> np.ndarray:
     offsets = np.array([int(average_duration / 2.0 + average_duration * x)
                         for x in range(n_seg)])
     return np.expand_dims(feat[offsets].astype("float32"), 0)
+
+
+def mean_pool_input(feat: np.ndarray, flatten: bool = True) -> np.ndarray:
+    """Mean over the time axis: [time_steps, ...] -> [1, D] (flattened) or
+    [1, ...]."""
+    new_feat = np.mean(feat, axis=0)
+    if flatten:
+        new_feat = new_feat.flatten()
+    return np.expand_dims(new_feat, 0)

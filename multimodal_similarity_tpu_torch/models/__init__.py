@@ -7,8 +7,8 @@ heads (PairSim, PairSim2, PDDM) and their all-pairs scorers.
 from __future__ import annotations
 
 from multimodal_similarity_tpu_torch.models.encoders import (
-    RTSN, TSN, ConvBiRTSN, ConvEmbed, ConvLSTM, ConvRTSN, ConvTSN, CUBLayer,
-    Dropout, OutputLayer)
+    BRANCH_EMB_DIM, RTSN, TSN, ConvBiRTSN, ConvEmbed, ConvLSTM, ConvRTSN,
+    ConvTSN, ConvTSNClassifier, CUBLayer, Dropout, OutputLayer)
 from multimodal_similarity_tpu_torch.models.heads import (
     PDDM, PairSim, PairSim2, score_all_pairs, score_all_pairs_sym, score_rows)
 from multimodal_similarity_tpu_torch.models.inception_v2 import (
@@ -50,7 +50,8 @@ def build_encoder(network: str, *, num_seg: int = 3, emb_dim: int = 128,
     raise NotImplementedError(f"unknown network: {network}")
 
 
-__all__ = ["TSN", "RTSN", "ConvEmbed", "ConvTSN", "ConvRTSN", "ConvBiRTSN",
+__all__ = ["BRANCH_EMB_DIM", "TSN", "RTSN", "ConvEmbed", "ConvTSN",
+           "ConvTSNClassifier", "ConvRTSN", "ConvBiRTSN",
            "ConvLSTM", "OutputLayer", "CUBLayer", "Dropout", "LSTM", "BiLSTM",
            "TFLSTMCell", "PDDM", "PairSim", "PairSim2", "score_all_pairs",
            "score_rows", "score_all_pairs_sym", "InceptionV2",

@@ -69,6 +69,11 @@ class TSN(nn.Module):
         return h.reshape(b, self.n_seg, self.emb_dim).mean(dim=1)
 
 
+# the emb_dim of the sensors and segment RTSN towers that the multimodal
+# trainers and late-fusion evaluation pair with the video encoder
+BRANCH_EMB_DIM = 32
+
+
 class RTSN(nn.Module):
     """Linear embed + LSTM over segments, last output."""
 
@@ -117,6 +122,28 @@ class ConvTSN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(self.embed(x)).mean(dim=1)
+
+
+class ConvTSNClassifier(nn.Module):
+    """ConvTSN with a per-segment softmax head averaged over segments;
+    returns (feat, logits): the segment mean of the FC output, and the
+    segment mean of the head over dropout(relu(FC output))."""
+
+    def __init__(self, n_seg: int = 3, n_C: int = 20, emb_dim: int = 256,
+                 n_input: int = 1536, n_h: int = 8, n_w: int = 8,
+                 n_output: int = 11, keep_prob: float = 1.0,
+                 generator: Generator = None,
+                 dropout_generator: Generator = None):
+        super().__init__()
+        self.embed = ConvEmbed(n_input, n_C, generator)
+        self.fc = dense(n_h * n_w * n_C, emb_dim, generator)
+        self.dropout = Dropout(1.0 - keep_prob, dropout_generator)
+        self.head = dense(emb_dim, n_output, generator)
+
+    def forward(self, x: torch.Tensor):
+        h = self.fc(self.embed(x))                       # [B, S, emb]
+        logits = self.head(self.dropout(torch.relu(h))).mean(dim=1)
+        return h.mean(dim=1), logits
 
 
 class ConvRTSN(nn.Module):

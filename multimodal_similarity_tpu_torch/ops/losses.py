@@ -1,5 +1,6 @@
-"""Metric-learning losses: the triplet family, and the batch-structured
-losses over a full distance matrix (the oracles of the fused kernels)."""
+"""Metric-learning losses: the triplet family, the batch-structured
+losses over a full distance matrix (the oracles of the fused kernels), and
+the Deep CCA and classification losses."""
 
 from __future__ import annotations
 
@@ -367,3 +368,53 @@ def cluster_loss(labels: torch.Tensor, embeddings: torch.Tensor,
     score_gt = -torch.where(is_first, best_per_class,
                             torch.zeros_like(best_per_class)).sum()
     return _relu_even(score_pred + margin - score_gt)
+
+
+# ---------------------------------------------------------------------------
+# DCCA and classification
+# ---------------------------------------------------------------------------
+
+def _inv_sqrt(s: torch.Tensor) -> torch.Tensor:
+    """S^-1/2 from ``torch.linalg.eigh``; eigenvalues at or under 1e-12
+    get a zero weight (the reference drops those directions).  The inner
+    ``where`` keeps the gradient of the dropped branch finite."""
+    d, v = torch.linalg.eigh(s)
+    valid = d > 1e-12
+    d_isqrt = torch.where(
+        valid, 1.0 / torch.sqrt(torch.where(valid, d, torch.ones_like(d))),
+        torch.zeros_like(d))
+    return (v * d_isqrt[None, :]) @ v.T
+
+
+def dcca_loss(x1: torch.Tensor, x2: torch.Tensor, k: int = 0,
+              rcov1: float = 1e-4, rcov2: float = 1e-4) -> torch.Tensor:
+    """Deep CCA correlation loss: minus the sum of the top ``k`` canonical
+    correlations of the two views (all of them when ``k`` is 0).
+
+    Mean-centre both views, form the ``rcov``-regularised covariances over
+    n - 1, whiten with eigh-based inverse square roots, and sum the top
+    singular values of the whitened cross-covariance."""
+    n = x1.shape[0]
+    d1, d2 = x1.shape[1], x2.shape[1]
+    if k == 0:
+        k = min(d1, d2)
+    x1 = x1 - x1.mean(dim=0, keepdim=True)
+    x2 = x2 - x2.mean(dim=0, keepdim=True)
+    denom = float(n - 1)
+    s11 = x1.T @ x1 / denom + rcov1 * torch.eye(d1, dtype=x1.dtype,
+                                                device=x1.device)
+    s22 = x2.T @ x2 / denom + rcov2 * torch.eye(d2, dtype=x2.dtype,
+                                                device=x2.device)
+    s12 = x1.T @ x2 / denom
+    t = _inv_sqrt(s11) @ s12 @ _inv_sqrt(s22)
+    return -torch.linalg.svdvals(t)[:k].sum()
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean softmax cross entropy and accuracy over the batch."""
+    labels = labels.reshape(-1).long()
+    log_probs = F.log_softmax(logits, dim=-1)
+    nll = -log_probs.gather(1, labels[:, None])[:, 0]
+    acc = (logits.argmax(dim=-1) == labels).float().mean()
+    return nll.mean(), acc

@@ -13,7 +13,8 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Optional
+from collections import OrderedDict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -44,6 +45,29 @@ def load_checkpoint(path: str, model: nn.Module,
     if optimizer is not None and ckpt["optimizer"] is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
     return int(ckpt["step"])
+
+
+def _select(params: Dict[str, torch.Tensor], scope: str):
+    prefix = scope.strip("/").replace("/", ".") + "."
+    return OrderedDict((k[len(prefix):], v) for k, v in params.items()
+                       if k.startswith(prefix))
+
+
+def restore_encoder_params(model_path: str, variable_name: str = "",
+                           subkey: Optional[str] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """The parameters of a port checkpoint, on the CPU: those under scope
+    ``variable_name`` (raises when it has none), then those under
+    ``subkey`` where the checkpoint has that group, each prefix dropped."""
+    ckpt = torch.load(model_path, map_location="cpu", weights_only=True)
+    params = ckpt.get("model", ckpt)
+    if variable_name:
+        params = _select(params, variable_name)
+        if not params:
+            raise KeyError(f"{model_path} has no scope {variable_name!r}")
+    if subkey:
+        params = _select(params, subkey) or params
+    return params
 
 
 class CheckpointManager:

@@ -56,13 +56,15 @@ from multimodal_similarity_tpu_torch.data import LABEL_TRANSFER
 from multimodal_similarity_tpu_torch.data.device_feed import (
     dequant_features, device_prefetch, feature_keys, take_features)
 from multimodal_similarity_tpu_torch.models import (
-    PDDM, RTSN, build_encoder, score_all_pairs_sym, score_rows)
+    BRANCH_EMB_DIM, PDDM, RTSN, build_encoder, score_all_pairs_sym,
+    score_rows)
 from multimodal_similarity_tpu_torch.ops.distances import cdist_rows
 from multimodal_similarity_tpu_torch.ops.losses import triplet_loss_masked
 from multimodal_similarity_tpu_torch.ops.mining import (
     mine_hard_structure_triplets_rowwise,
     mine_semihard_triplets_from_embeddings, select_triplets_facenet)
-from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
+from multimodal_similarity_tpu_torch.train.checkpoints import (
+    load_checkpoint, restore_encoder_params)
 from multimodal_similarity_tpu_torch.train.state import (
     apply_gradients, build_optimizer, l2_regularization,
     learning_rate_schedule)
@@ -72,12 +74,11 @@ from multimodal_similarity_tpu_torch.train.trainer import (
     epoch_of_step, validate)
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
+from multimodal_similarity_tpu_torch.train.trainers._loop import (
+    loader_batches)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
-from multimodal_similarity_tpu_torch.train.trainers.pddm_model import (
-    loader_batches)
 
-BRANCH_EMB_DIM = 32
 BRANCHES = ("modality_sensors", "modality_segment")
 # the flagship's mining thresholds and hard triplets an anchor
 THRESHOLD_UP, THRESHOLD_DOWN, TRIPLET_PER_EVENT = 0.8, 0.2, 3
@@ -258,12 +259,14 @@ def build_model(cfg: TrainConfig, device: torch.device,
     return nn.ModuleDict(mods).to(device)
 
 
-def restore_branch(branch: nn.Module, path: str) -> None:
+def restore_branch(branch: nn.Module, path: str,
+                   subkey: Optional[str] = None) -> None:
     """Copy the parameters of a ``pddm_model`` checkpoint (groups
     ``encoder`` and ``pddm``) that ``branch`` also has into it; the rest
-    keep their values (the JAX ``_graft``)."""
-    device = next(branch.parameters()).device
-    saved = torch.load(path, map_location=device, weights_only=True)["model"]
+    keep their values (the JAX ``_graft``).  With ``subkey``, a checkpoint
+    that has that group gives only its parameters, the group's prefix
+    dropped (a bare encoder restored from a ``pddm_model`` checkpoint)."""
+    saved = restore_encoder_params(path, subkey=subkey)
     state = branch.state_dict()
     state.update({k: v for k, v in saved.items() if k in state})
     branch.load_state_dict(state)

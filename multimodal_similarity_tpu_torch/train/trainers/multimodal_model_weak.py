@@ -46,12 +46,12 @@ from multimodal_similarity_tpu_torch.train.trainer import (
     epoch_of_step, validate)
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
+from multimodal_similarity_tpu_torch.train.trainers._loop import (
+    loader_batches)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 from multimodal_similarity_tpu_torch.train.trainers.multimodal_model import (
     build_model, restore_branch)
-from multimodal_similarity_tpu_torch.train.trainers.pddm_model import (
-    loader_batches)
 
 SELECTORS = ("confidence", "random", "nopos")
 

@@ -35,10 +35,12 @@ from multimodal_similarity_tpu_torch.train.steps import (
     l2_normalize, make_embed_fn, masked_self_distance)
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
+from multimodal_similarity_tpu_torch.train.trainers._loop import (
+    retrieval_validation, run_budget_trainer)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 from multimodal_similarity_tpu_torch.train.trainers.pddm_model import (
-    pair_model, run_budget_trainer)
+    pair_model)
 
 
 def verification_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -113,8 +115,12 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     step = make_multitask_step(
         model, optimizer, cfg,
         torch.Generator(device=device).manual_seed(cfg.seed + 2))
-    return run_budget_trainer(cfg, exp, model, optimizer, step, device,
-                              step_host, echo_keys=("ver_acc",))
+    return run_budget_trainer(
+        cfg, exp, model, optimizer,
+        lambda b, epoch, lr: step(b["events"], b["labels"], b["mask"], lr),
+        device, step_host,
+        retrieval_validation(model.encoder, cfg, exp, device),
+        echo_keys=("ver_acc",))
 
 
 def main(argv=None):

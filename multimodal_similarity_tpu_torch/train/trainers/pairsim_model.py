@@ -46,12 +46,14 @@ from multimodal_similarity_tpu_torch.train.steps import (
 from multimodal_similarity_tpu_torch.train.trainer import epoch_of_step
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
+from multimodal_similarity_tpu_torch.train.trainers._loop import (
+    loader_batches)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 from multimodal_similarity_tpu_torch.train.trainers.multitask_model import (
     verification_loss)
 from multimodal_similarity_tpu_torch.train.trainers.pddm_model import (
-    loader_batches, pair_model)
+    pair_model)
 
 HARD_THRESHOLD = 0.5
 PAIR_KEYS = ("pair_idx", "pair_lab", "pair_mask")

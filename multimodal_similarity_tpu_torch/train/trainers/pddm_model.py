@@ -21,9 +21,7 @@ Run:  python -m multimodal_similarity_tpu_torch.train.trainers.pddm_model --DATA
 from __future__ import annotations
 
 import argparse
-import itertools
 import sys
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -32,20 +30,18 @@ from torch import nn
 
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
-from multimodal_similarity_tpu_torch.data.device_feed import device_prefetch
 from multimodal_similarity_tpu_torch.eval.metrics import average_precision
 from multimodal_similarity_tpu_torch.models import (
     PDDM, build_encoder, score_all_pairs_sym)
 from multimodal_similarity_tpu_torch.ops.mining import mine_semihard_triplets
 from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
-from multimodal_similarity_tpu_torch.train.state import (
-    build_optimizer, learning_rate_schedule)
+from multimodal_similarity_tpu_torch.train.state import build_optimizer
 from multimodal_similarity_tpu_torch.train.steps import (
     embed_in_chunks, make_embed_fn)
-from multimodal_similarity_tpu_torch.train.trainer import (
-    epoch_of_step, validate)
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
+from multimodal_similarity_tpu_torch.train.trainers._loop import (
+    retrieval_validation, run_budget_trainer)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 from multimodal_similarity_tpu_torch.train.trainers.pddm_CUB import (
@@ -130,70 +126,6 @@ def mAP_PDDM(sim: np.ndarray, labels: np.ndarray) -> float:
     return total / max(count, 1)
 
 
-def loader_batches(exp: HondaExperiment):
-    """Loader batches epoch after epoch, for the feed thread."""
-    while True:
-        produced = 0
-        for b in exp.loader.epoch():
-            produced += 1
-            yield b
-        if not produced:
-            return
-
-
-def run_budget_trainer(cfg: TrainConfig, exp: HondaExperiment,
-                       model: nn.Module, optimizer, step: Callable,
-                       device: torch.device, step_host: int,
-                       extra_metrics: Optional[Callable] = None,
-                       echo_keys=()) -> TrainResult:
-    """The epoch loop of the budget-batch trainers (``pddm_model``,
-    ``multitask_model``): the loader's batches uploaded on the feed thread,
-    one ``step(events, labels, mask, lr)`` a batch with its scalars logged
-    without a per-step readback, then per epoch the leave-one-out
-    validation of ``model.encoder`` (plus ``extra_metrics(val_x)``) and a
-    checkpoint.  Closes the feed and ``exp``."""
-    embed_fn = make_embed_fn(model.encoder, cfg.normalized)
-    val_x = torch.from_numpy(exp.val_feats).to(device)
-    metrics = {}
-    stream = device_prefetch(loader_batches(exp), device,
-                             device_keys=("events", "labels", "mask"))
-    try:
-        epoch = epoch_of_step(step_host, exp.batch_per_epoch)
-        while epoch < cfg.max_epochs:
-            lr = learning_rate_schedule(epoch, cfg.learning_rate,
-                                        cfg.static_epochs, cfg.max_epochs)
-            step_at_epoch_start = step_host
-            for batch in itertools.islice(stream, exp.batch_per_epoch):
-                t0 = time.time()
-                aux = step(batch["events"], batch["labels"], batch["mask"],
-                           lr)
-                step_host += 1
-                exp.log_deferred(
-                    step_host, aux,
-                    {"train_time": time.time() - t0, "learning_rate": lr},
-                    echo_fn=lambda sc, e=epoch, s=step_host: (
-                        f"[{cfg.name}] epoch {e + 1} step {s} "
-                        + " ".join(f"{k} {sc[k]:.4f}"
-                                   for k in ("loss",) + tuple(echo_keys))))
-            exp.flush_logs()
-            if step_host == step_at_epoch_start:
-                print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
-                      "stopping")
-                break
-            metrics, _ = validate(embed_fn, val_x, exp.val_labels, device)
-            if extra_metrics is not None:
-                metrics.update(extra_metrics(val_x))
-            exp.log(step_host, metrics,
-                    f"[{cfg.name}] epoch {epoch + 1} "
-                    + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
-            exp.ckpt.save(model, optimizer, step_host)
-            epoch = epoch_of_step(step_host, exp.batch_per_epoch)
-    finally:
-        stream.close()  # cancels the feed and loader threads
-        exp.close()
-    return TrainResult(model, optimizer, step_host, metrics, exp.result_dir)
-
-
 def train(cfg: TrainConfig, event_budget: Optional[int] = None,
           result_dir: Optional[str] = None, device=None) -> TrainResult:
     """Train on ``device`` (default ``cuda``; raises when no card is
@@ -217,9 +149,13 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
         sim = pddm_similarity_matrix(model, val_x, device, cfg.normalized)
         return {"val_mAP_PDDM": mAP_PDDM(sim, exp.val_labels)}
 
-    return run_budget_trainer(cfg, exp, model, optimizer, step, device,
-                              step_host, extra_metrics=pddm_map,
-                              echo_keys=("pddm_loss", "triplet_num"))
+    return run_budget_trainer(
+        cfg, exp, model, optimizer,
+        lambda b, epoch, lr: step(b["events"], b["labels"], b["mask"], lr),
+        device, step_host,
+        retrieval_validation(model.encoder, cfg, exp, device,
+                             extra=pddm_map),
+        echo_keys=("pddm_loss", "triplet_num"))
 
 
 def main(argv=None):
