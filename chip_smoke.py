@@ -139,17 +139,35 @@ Phases, each fatal on failure (no error is caught):
    over the full-budget directory's 340 test events on the card against
    the CPU (embeddings EVAL_EMB_RTOL, metrics PAIR_METRIC_TOL), and the
    steady step of ``multitask_dcca``, ``modality_hallucination`` and
-   ``cross_prediction`` on the full-budget directory, which it then
-   removes.
+   ``cross_prediction`` on the full-budget directory;
+16. the native host data path and slice 6b: the native TSN gather
+   (``native_gather_segments`` and ``load_data_and_label``, built with
+   g++ before phase 8, whose loaders all take it) against NumPy indexing
+   and the per-event Python loop, bit for bit, train-time (generator state
+   included) and test-time, on a full-budget session, and both paths'
+   times on one session and a 3-session batch; the unsupervised pretrain
+   chain at scripts/unimodal_pretrain.sh's widths on the full-budget
+   directory's sensors: ``unimodal_pretrain_sae`` (Seq2seqTSN, emb_dim 128,
+   1 epoch), ``unimodal_pretrain_cluster`` (the port's k-means, 20
+   clusters, n_init 20; the stored inertia against NumPy on the CPU's
+   embeddings) and ``unimodal_pretrain_pairsim`` (2 epochs; val_acc
+   against the CPU head); ``base_model_tf`` at base_model's width on
+   TFRecords written from the trainers' directory (a native-parsed batch
+   against the Python parse, the metrics against the NumPy oracle, the
+   steady step); no launch of any ``csrc/`` kernel; then removes the
+   full-budget directory and prints each phase's native gathers and
+   deferrals (phases 8-15 must have gathered natively).
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
 """
 
+import contextlib
 import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2486,6 +2504,8 @@ PDDM_SCALE, PDDM_SHIFT = 100.0, -3.0
 FULL_SESSIONS, FULL_EVENTS = (12, 1, 1), 340
 # their windows: the loader takes seconds a batch there
 FULL_WARM, FULL_DRAWS = 2, 8
+# the directory's resnet frames: base_model's width
+FULL_RESNET = (8, 8, 1536)
 
 
 def add_modalities(root):
@@ -2536,7 +2556,7 @@ def write_full_budget(root):
     from numpy.lib.format import open_memmap
     t0 = time.time()
     rng = np.random.RandomState(2)
-    dims = {"resnet": (8, 8, 1536), **MM_MODALITIES}
+    dims = {"resnet": FULL_RESNET, **MM_MODALITIES}
     centers = {m: rng.randn(11, *d).astype(np.float32)
                for m, d in dims.items()}
     pool = rng.randn(256, *dims["resnet"]).astype(np.float32)
@@ -3147,9 +3167,8 @@ def slice6_phase(root, ckpts, full_root):
     test session of ``full_root``; then the
     steady step of ``multitask_dcca``, ``modality_hallucination`` and
     ``cross_prediction`` on ``full_root`` (batches of 1000 real events),
-    which it removes."""
+    which phase 16 reads next."""
     import random
-    import shutil
 
     import numpy as np
     import torch
@@ -3288,13 +3307,365 @@ def slice6_phase(root, ckpts, full_root):
                                  SLICE6_WARM, SLICE6_DRAWS)
         del res, step, exp
     del runs
-    shutil.rmtree(full_root)
     torch.cuda.empty_cache()
     print(f"[slice6] steady state (s a loader draw) {json.dumps(times)}; "
           f"steps alone (ms) {json.dumps(step_ms)}; "
           f"dcca deltas {json.dumps(dcca_deltas)}, ms {json.dumps(dcca_ms)};"
           f" eval {json.dumps(evals)}; slice 6a phase "
           f"{time.time() - t_phase:.1f} s", flush=True)
+
+
+NATIVE_REPEATS = 2
+TF_WARM, TF_DRAWS = 1, 4
+
+
+@contextlib.contextmanager
+def python_gather():
+    """``load_data_and_label`` on its per-event Python loop (the native
+    gather patched to defer)."""
+    from multimodal_similarity_tpu_torch.data import datasets
+    native_path = datasets._load_events_tsn_native
+    datasets._load_events_tsn_native = lambda *a: None
+    try:
+        yield
+    finally:
+        datasets._load_events_tsn_native = native_path
+
+
+def same_events(tag, got, want):
+    import numpy as np
+    if not (got[0].dtype == want[0].dtype
+            and np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])
+            and [tuple(map(int, b)) for b in got[2]]
+            == [tuple(map(int, b)) for b in want[2]]):
+        fail(f"{tag}: the native gather differs from the Python loop")
+
+
+def native_phase(full_root):
+    """The native TSN gather on the card's host, on the full-budget
+    directory's resnet sessions (340 events of MIN_LENGTH + 1 frames, 3 of
+    them copied): ``native_gather_segments`` against NumPy indexing and
+    ``load_data_and_label`` against the Python loop, bit for bit, with
+    train-time sampling (the generator left in the same state) and
+    test-time sampling; then both paths' times on one session and on a
+    3-session ``SessionBatchLoader`` batch at the 1000-event budget."""
+    import functools
+
+    import numpy as np
+    from multimodal_similarity_tpu_torch.data import (
+        MIN_LENGTH, SessionBatchLoader, load_data_and_label,
+        native_gather_segments, prepare_dataset, tsn_prepare_input,
+        tsn_prepare_input_test)
+    from multimodal_similarity_tpu_torch.data import native
+
+    with open(os.path.join(full_root, "train_session.txt")) as f:
+        sessions = f.read().split()
+    rows = prepare_dataset(os.path.join(full_root, "features"), sessions,
+                           "resnet", os.path.join(full_root, "labels"))
+    feat_path, label_path = rows[0]
+
+    def train_prep(seed):
+        gen = np.random.RandomState(seed)
+        return gen, functools.partial(
+            functools.partial(tsn_prepare_input, 3), rng=gen)
+
+    gen_n, prep_n = train_prep(11)
+    got = load_data_and_label(feat_path, label_path, prep_n)
+    gen_p, prep_p = train_prep(11)
+    with python_gather():
+        want = load_data_and_label(feat_path, label_path, prep_p)
+    same_events("native train sampling", got, want)
+    if gen_n.randint(1 << 30) != gen_p.randint(1 << 30):
+        fail("native train sampling: the generator's state differs")
+    prep_t = functools.partial(tsn_prepare_input_test, 3)
+    got = load_data_and_label(feat_path, label_path, prep_t)
+    with python_gather():
+        same_events("native test sampling", got,
+                    load_data_and_label(feat_path, label_path, prep_t))
+    feats = np.load(feat_path, mmap_mode="r")
+    flat = feats.reshape(feats.shape[0], -1)
+    starts = np.asarray([b[0] for b in got[2]], np.int64)
+    offsets = np.random.RandomState(0).randint(
+        0, MIN_LENGTH + 1, size=(len(starts), 3)).astype(np.int64)
+    if not np.array_equal(native_gather_segments(flat, starts, offsets),
+                          flat[starts[:, None] + offsets]):
+        fail("native_gather_segments differs from NumPy indexing")
+    n_events = got[0].shape[0]
+    del got, want, feats, flat
+
+    times = {"session_native_s": [], "session_python_s": [],
+             "batch_native_s": [], "batch_python_s": []}
+    loader = SessionBatchLoader(
+        rows[:3], sess_per_batch=3, event_budget=1000,
+        prepare_funcs=[functools.partial(tsn_prepare_input, 3)], seed=0)
+    for _ in range(NATIVE_REPEATS):
+        for path, ctx in (("native", contextlib.nullcontext),
+                          ("python", python_gather)):
+            with ctx():
+                t = time.perf_counter()
+                load_data_and_label(feat_path, label_path, train_prep(1)[1])
+                times[f"session_{path}_s"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                batch = loader._load_group(rows[:3])
+                times[f"batch_{path}_s"].append(time.perf_counter() - t)
+            if int(batch["num_events"]) != min(1000, 3 * FULL_EVENTS):
+                fail(f"native: a 3-session batch of {batch['num_events']} "
+                     "events does not fill the 1000-event budget")
+            del batch
+    frame = int(np.prod(np.load(feat_path, mmap_mode="r").shape[1:])) * 4
+    print(f"[native] {native.library_path().name}; one session of "
+          f"{n_events} events and a 3-session batch ("
+          f"{min(1000, 3 * FULL_EVENTS)} of {3 * FULL_EVENTS} events), resnet "
+          f"{'x'.join(map(str, FULL_RESNET))} ({frame} bytes a frame), "
+          f"each event MIN_LENGTH + 1 = {MIN_LENGTH + 1} frames of which 3 "
+          f"are sampled (real Honda events run up to MAX_LENGTH = 45): the "
+          f"native gather copies the sampled frames once, into the session "
+          f"array; the Python loop copies them into a per-event array, casts "
+          f"it, concatenates the session and casts it again; times (s) "
+          f"{json.dumps(times)}", flush=True)
+    return times
+
+
+def pretrain_chain(full_root):
+    """scripts/unimodal_pretrain.sh at its widths on the full-budget
+    directory's sensors (8,) features: ``unimodal_pretrain_sae``
+    (Seq2seqTSN, emb_dim 128, Adam 1e-2, 3 segments; 1 epoch of 500),
+    ``unimodal_pretrain_cluster`` on its checkpoint (20 clusters, n_init
+    20, on the 12 x 340 train events), ``unimodal_pretrain_pairsim`` on
+    the cluster files (emb_dim 128; 2 epochs of 200, the curriculum phase
+    0.5 then 1.0).  Checks finite losses and val_mse, the stored inertia
+    against NumPy on the CPU's embeddings with the stored centres, the
+    high-confidence rows as CPU embeddings, and val_acc against the CPU
+    head on the same pairs."""
+    import functools
+    import pickle
+
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.configs import TrainConfig
+    from multimodal_similarity_tpu_torch.data import (
+        prepare_dataset, tsn_prepare_input_test)
+    from multimodal_similarity_tpu_torch.models import Seq2seqTSN
+    from multimodal_similarity_tpu_torch.train.checkpoints import (
+        load_checkpoint)
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        unimodal_pretrain_cluster, unimodal_pretrain_pairsim,
+        unimodal_pretrain_sae)
+
+    out = {}
+
+    def cfg_of(name, **kw):
+        return TrainConfig(DATA_ROOT=full_root, name=name, feat="sensors",
+                           n_input=8, emb_dim=128, optimizer="ADAM",
+                           log_flush_every=1, **kw).resolve()
+
+    t0 = time.time()
+    cfg = cfg_of("smoke_pretrain_sae", network="rtsn", max_epochs=1,
+                 static_epochs=250, learning_rate=1e-2)
+    res = unimodal_pretrain_sae.train(
+        cfg, result_dir=os.path.join(full_root, "r_sae"), device="cuda")
+    recs = [json.loads(line) for line in
+            open(os.path.join(res.result_dir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    if res.step != 4 or len(losses) != 4 or not all(
+            map(math.isfinite, losses + [res.metrics["val_mse"]])):
+        fail(f"pretrain_sae: {res.step} steps, losses {losses}, metrics "
+             f"{res.metrics}")
+    out["sae"] = {"s": time.time() - t0, "steps": res.step,
+                  "loss": losses, "val_mse": res.metrics["val_mse"]}
+    ckpt = os.path.join(res.result_dir, f"{cfg.name}.ckpt-{res.step}")
+
+    t0 = time.time()
+    ccfg = cfg_of("smoke_pretrain_cluster", model_path=ckpt)
+    kdir = unimodal_pretrain_cluster.run(
+        ccfg, result_dir=os.path.join(full_root, "r_kmeans"),
+        device="cuda")
+    seconds = time.time() - t0
+    with open(os.path.join(kdir, "kmeans_model.pkl"), "rb") as f:
+        km = pickle.load(f)
+    with open(os.path.join(kdir, "train_data.pkl"), "rb") as f:
+        data = pickle.load(f)
+    # the CPU's embeddings of the same events, the stored centres' inertia
+    model = Seq2seqTSN(n_seg=3, n_input=8, emb_dim=128)
+    load_checkpoint(ckpt, model)
+    rows = prepare_dataset(ccfg.feature_root, ccfg.train_session, "sensors",
+                           ccfg.label_root)
+    emb, _, _ = unimodal_pretrain_cluster.embed_sessions(
+        model, rows, functools.partial(tsn_prepare_input_test, 3),
+        torch.device("cpu"))
+    centers = km["cluster_centers"]
+    d = ((emb[:, None, :].astype(np.float64) - centers[None]) ** 2).sum(-1)
+    inertia = float(d.min(axis=1).sum())
+    sizes = np.bincount(data["labels"][:, 0], minlength=20)
+    # each kept row is one of the events: its distance to the nearest CPU
+    # embedding
+    err = float(torch.cdist(torch.from_numpy(data["feats"]).double(),
+                            torch.from_numpy(emb).double()).min(1)[0].max())
+    print(f"[pretrain] k-means on {emb.shape[0]} embeddings: inertia card "
+          f"{km['inertia']:.6f} vs NumPy with the stored centres on the "
+          f"CPU's embeddings {inertia:.6f}; {km['n_iter']} Lloyd "
+          f"iterations in the kept run; high-confidence rows per cluster "
+          f"{sizes.tolist()} (each within {err:.2e} of a CPU embedding); "
+          f"{seconds:.1f} s", flush=True)
+    if not (emb.shape[0] == 12 * FULL_EVENTS and np.isfinite(inertia)
+            and abs(km["inertia"] - inertia) <= 1e-4 * inertia
+            and err <= 1e-4 and sizes.max() <= 100
+            and data["feats"].shape == (sizes.sum(), 128)):
+        fail("pretrain_cluster: the k-means result does not hold")
+    out["cluster"] = {"s": seconds, "inertia": km["inertia"],
+                      "sizes": sizes.tolist()}
+
+    t0 = time.time()
+    pcfg = cfg_of("smoke_pretrain_pairsim", max_epochs=2,
+                  model_path=os.path.join(kdir, "x"))
+    res = unimodal_pretrain_pairsim.train(
+        pcfg, result_dir=os.path.join(full_root, "r_pairsim"),
+        device="cuda")
+    recs = [json.loads(line) for line in
+            open(os.path.join(res.result_dir, "metrics.jsonl"))]
+    (_, _), (val_feats, val_labels) = unimodal_pretrain_pairsim \
+        .load_clusters(os.path.join(kdir, "train_data.pkl"))
+    a, b = unimodal_pretrain_pairsim.prepare_val(
+        val_labels, np.random.RandomState(pcfg.seed))
+    head = res.model.cpu().eval()
+    with torch.no_grad():
+        logits, _ = head.score(torch.from_numpy(val_feats[a]),
+                               torch.from_numpy(val_feats[b]))
+    lab = unimodal_pretrain_pairsim.pair_labels(val_labels, a, b)
+    cpu_acc = float((logits.argmax(-1).numpy() == lab).mean())
+    print(f"[pretrain] pairsim epochs {json.dumps(recs)}; val_acc card "
+          f"{res.metrics['val_acc']:.6f} vs CPU {cpu_acc:.6f}", flush=True)
+    if [r["phase"] for r in recs] != [0.5, 1.0] or not all(
+            math.isfinite(r["loss"]) for r in recs) or \
+            abs(cpu_acc - res.metrics["val_acc"]) > PAIR_METRIC_TOL:
+        fail("pretrain_pairsim: epochs or val_acc do not hold")
+    out["pairsim"] = {"s": time.time() - t0, "steps": res.step,
+                      "val_acc": res.metrics["val_acc"]}
+    print(f"[pretrain] {json.dumps(out)}", flush=True)
+    return out
+
+
+def tf_phase(root):
+    """``base_model_tf`` at base_model's width (ConvLSTM on 8x8x1536
+    frames, n_C 20, emb_dim 128, MAX_LENGTH_FRAMES 90, 64 events a batch,
+    100 triplets), 1 epoch on TFRecords that ``generate_event_tfrecords``
+    writes from the trainers' 10-session directory: a native-parsed batch
+    against the Python parse, finite losses, the validation metrics against
+    the NumPy oracle, and the steady step (TF_DRAWS draws after TF_WARM:
+    one batch an epoch here)."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.data import (
+        EventTFRecordLoader, generate_event_tfrecords, list_event_tfrecords,
+        prepare_dataset)
+    from multimodal_similarity_tpu_torch.data import native
+    from multimodal_similarity_tpu_torch.eval.metrics import (
+        evaluate_simple, retrieval_metrics)
+    from multimodal_similarity_tpu_torch.train.trainers import base_model_tf
+
+    cfg = full_width_cfg(root, "smoke_tf", network="convlstm", max_epochs=1,
+                         tfrecords_root=os.path.join(root, "tfrecords2"))
+    feat, flat_dim, hwc = base_model_tf.frame_layout(cfg)
+    t0 = time.time()
+    rows = prepare_dataset(cfg.feature_root,
+                           cfg.train_session + cfg.val_session, feat,
+                           cfg.label_root)
+    n = generate_event_tfrecords(rows, cfg.tfrecords_root, [feat])
+    paths = list_event_tfrecords(cfg.tfrecords_root, cfg.train_session)
+    size = sum(os.path.getsize(p) for p in
+               list_event_tfrecords(cfg.tfrecords_root))
+    print(f"[tf] {n} event records ({size} bytes) written in "
+          f"{time.time() - t0:.1f} s; {len(paths)} train events", flush=True)
+
+    loader = EventTFRecordLoader(paths[:64], feat, flat_dim, 64,
+                                 cfg.MAX_LENGTH_FRAMES, shuffle=False)
+    t0 = time.time()
+    got = loader._make_batch(paths[:64])
+    t_native = time.time() - t0
+    parse = native.native_load_event_batch
+    native.native_load_event_batch = lambda *a, **k: (None, None, None, 0)
+    try:
+        t0 = time.time()
+        want = loader._make_batch(paths[:64])
+        t_python = time.time() - t0
+    finally:
+        native.native_load_event_batch = parse
+    for key in ("features", "seq_len", "labels", "mask"):
+        if not np.array_equal(got[key], want[key]):
+            fail(f"tf: the native parse's {key} differs from the Python "
+                 "parse")
+    print(f"[tf] a batch of {len(paths[:64])} events parsed natively in "
+          f"{t_native:.3f} s and in Python in {t_python:.3f} s: equal",
+          flush=True)
+    del got, want
+
+    t0 = time.time()
+    res = base_model_tf.train(cfg, result_dir=os.path.join(root, "r_tf"),
+                              device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    recs = [json.loads(line) for line in
+            open(os.path.join(res.result_dir, "metrics.jsonl"))]
+    steps = [r for r in recs if "loss" in r]
+    print(f"[tf] {res.step} steps in {wall:.1f} s: "
+          + "; ".join(f"loss {r['loss']:.6f} triplets {r['triplet_num']:.0f}"
+                      for r in steps) + f"; metrics {res.metrics}",
+          flush=True)
+    if not steps or not all(math.isfinite(r["loss"]) for r in steps) or \
+            not math.isfinite(res.metrics.get("val_mAP", math.nan)):
+        fail("tf: non-finite loss or val mAP")
+    val_paths = list_event_tfrecords(cfg.tfrecords_root, cfg.val_session)
+    emb, labels = base_model_tf.embed_records(
+        res.model, cfg, val_paths, feat, flat_dim, hwc, 64,
+        torch.device("cuda"))
+    dev = retrieval_metrics(emb, labels)
+    ref = evaluate_simple(emb.cpu().numpy(), labels)
+    print(f"[tf] val metrics device (mAP, mPrec, R@1) {dev[0]:.6f} "
+          f"{dev[1]:.6f} {dev[2][1]:.6f} vs NumPy oracle {ref[0]:.6f} "
+          f"{ref[1]:.6f} {ref[2]:.6f}", flush=True)
+    if not np.allclose([dev[0], dev[1], dev[2][1]], list(ref), atol=2e-3) \
+            or abs(dev[0] - res.metrics["val_mAP"]) > 1e-6:
+        fail("tf: validation metrics disagree with the NumPy oracle or the "
+             "trainer")
+
+    def batches():
+        train_loader = EventTFRecordLoader(paths, feat, flat_dim, 64,
+                                           cfg.MAX_LENGTH_FRAMES, seed=1)
+        while True:
+            yield from train_loader.epoch()
+
+    step = base_model_tf.make_step(
+        res.model, res.optimizer, cfg, hwc,
+        torch.Generator(device="cuda").manual_seed(0))
+    steady = steady_step("tf", cfg, base_model_tf.FEED_KEYS,
+                         lambda b: step(b, cfg.learning_rate), batches(),
+                         TF_WARM, TF_DRAWS)
+    del res, step
+    torch.cuda.empty_cache()
+    return {"train_s": wall, "parse_native_s": t_native,
+            "parse_python_s": t_python, **steady}
+
+
+def pretrain_phase(root, full_root):
+    """Phase 16: the native host data path, the pretrain chain and
+    ``base_model_tf``; no ``csrc/`` launch."""
+    from multimodal_similarity_tpu_torch.data import native
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+
+    t_phase = time.time()
+    reset_launch_counts()
+    native.reset_counts()
+    times = native_phase(full_root)
+    chain = pretrain_chain(full_root)
+    tf = tf_phase(root)
+    expect_launches("pretrain", dict(LAUNCHES), dict.fromkeys(LAUNCHES, 0))
+    print(f"[pretrain] native counts over phase 16 {json.dumps(native.COUNTS)}"
+          f"; native {json.dumps(times)}; chain seconds "
+          f"{json.dumps({k: v['s'] for k, v in chain.items()})}; tf "
+          f"{json.dumps(tf)}; phase 16 {time.time() - t_phase:.1f} s",
+          flush=True)
 
 
 def main():
@@ -3316,11 +3687,19 @@ def main():
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
 
+    from multimodal_similarity_tpu_torch.data import native
     from multimodal_similarity_tpu_torch.ops.kernels._build import build
     t0 = time.time()
     logs = build()
     print(f"[build] {len(logs)} CUDA source(s) built in "
           f"{time.time() - t0:.1f} s", flush=True)
+    # the host library every Honda loader's TSN gather takes from phase 8 on
+    t0 = time.time()
+    native.load_native()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    print(f"[build] native host library {native.library_path().name} "
+          f"({gxx}) ready in {time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
@@ -3346,16 +3725,35 @@ def main():
     fused_step_rates()
     scratch = os.path.join(HERE, "_build")
     os.makedirs(scratch, exist_ok=True)
+    gathers = {}
+
+    def counted(tag, phase, *args):
+        """``phase(*args)`` with the native gather's counts over it."""
+        native.reset_counts()
+        out = phase(*args)
+        gathers[tag] = dict(native.COUNTS)
+        return out
+
     with tempfile.TemporaryDirectory(dir=scratch) as root:
         steady_root = os.path.join(root, "steady")
         write_synthetic(root)
         write_synthetic(steady_root, n_sessions=40)
-        launches = trainer_phase(root, steady_root)
-        base_model_phase(root, steady_root)
+        launches = counted("trainer", trainer_phase, root, steady_root)
+        counted("base_model", base_model_phase, root, steady_root)
         cub = cub_phase(root)
-        ckpts = pair_phase(root, steady_root)
-        full_root = multimodal_phase(root, ckpts)
-        slice6_phase(root, ckpts, full_root)
+        ckpts = counted("pair", pair_phase, root, steady_root)
+        full_root = counted("multimodal", multimodal_phase, root, ckpts)
+        counted("slice6", slice6_phase, root, ckpts, full_root)
+        pretrain_phase(root, full_root)
+        shutil.rmtree(full_root)
+    # every Honda loader of phases 8-15 draws TSN segments: each must have
+    # taken the native gather
+    print(f"[native] gathers and deferrals by phase {json.dumps(gathers)}",
+          flush=True)
+    for tag, counts in gathers.items():
+        if not counts["gather"]:
+            fail(f"native: phase {tag}'s loaders never took the native "
+                 "gather")
     # each batch-hard kernel's launches on the trainers' paths (the Honda
     # batch-hard trainer, and base_CUB --loss batchhard, which takes K1);
     # one that neither path's gate took is counted on the mining path,

@@ -17,7 +17,10 @@ scopes, so the map is by name:
   ``<scope>.running_mean`` and ``<scope>.running_var``;
 * the LSTM cell's fused gate Dense, ``lstm/cell/kernel/{kernel,bias}``,
   becomes ``lstm.cell.kernel.{weight,bias}``, the cell's one fused
-  ``[x; h]`` weight with the gates in the same (i, j, f, o) order.
+  ``[x; h]`` weight with the gates in the same (i, j, f, o) order (so do
+  the autoencoder's ``encoder/cell/...`` and ``decoder/cell/...``);
+* any other leaf, a raw ``self.param`` such as ``W_encode`` or ``b_4``,
+  becomes the torch parameter of the same name, untransposed.
 
 Every leaf must be consumed and every torch parameter and buffer filled: a
 missing or extra leaf, or a shape that does not fit, raises.
@@ -73,7 +76,9 @@ def flax_to_state_dict(params: Mapping, model: nn.Module,
         elif leaf == "bias":
             name = ".".join(scope + ["bias"])
         else:
-            raise KeyError(f"JAX leaf {where} has no torch counterpart")
+            name = ".".join(scope + [leaf])
+            if name not in expected:
+                raise KeyError(f"JAX leaf {where} has no torch counterpart")
         if name not in expected:
             raise KeyError(f"extra JAX leaf {where}: the model has no "
                            f"parameter {name}")

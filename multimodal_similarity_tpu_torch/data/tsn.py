@@ -1,11 +1,17 @@
-"""TSN segment sampling on the host (NumPy).
+"""Input preparation on the host (NumPy): TSN segment sampling and
+fixed-length padding.
 
 Train time draws one random frame per segment; test time takes each
-segment's centre frame.  ``mean_pool_input`` pools a whole window instead
-(the cross-prediction trainer's regression target).
+segment's centre frame.  ``rnn_prepare_input`` zero-pads or truncates a
+window to a fixed frame count (the ConvLSTM input), and
+``mean_pool_input`` pools a whole window (the cross-prediction trainer's
+regression target).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Callable
 
 import numpy as np
 
@@ -40,3 +46,26 @@ def mean_pool_input(feat: np.ndarray, flatten: bool = True) -> np.ndarray:
     if flatten:
         new_feat = new_feat.flatten()
     return np.expand_dims(new_feat, 0)
+
+
+def rnn_prepare_input(max_time: int, feat: np.ndarray) -> np.ndarray:
+    """Zero-pad or truncate to ``max_time`` frames: [time_steps, ...] ->
+    [1, max_time, ...] f32."""
+    new_feat = np.zeros((max_time,) + feat.shape[1:], dtype="float32")
+    if feat.shape[0] > max_time:
+        new_feat = feat[:max_time].astype("float32")
+    else:
+        new_feat[: feat.shape[0]] = feat
+    return np.expand_dims(new_feat, 0)
+
+
+def make_prepare_input(network: str, n_seg: int = 3, max_time: int = 90,
+                       train: bool = True) -> Callable:
+    """The prepare function of a ``--network``: fixed-length padding for
+    ``convlstm``, else TSN sampling (random at train time, centre frames
+    at test time)."""
+    if network == "convlstm":
+        return functools.partial(rnn_prepare_input, max_time)
+    if train:
+        return functools.partial(tsn_prepare_input, n_seg)
+    return functools.partial(tsn_prepare_input_test, n_seg)

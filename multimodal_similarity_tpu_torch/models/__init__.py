@@ -1,5 +1,6 @@
-"""Model zoo: the temporal encoders, the CUB heads and tower, the pair
-heads (PairSim, PairSim2, PDDM) and their all-pairs scorers.
+"""Model zoo: the temporal encoders, the pretraining autoencoders
+(Seq2seqTSN, SAE), the CUB heads and tower, the pair heads (PairSim,
+PairSim2, PDDM) and their all-pairs scorers.
 
 ``build_encoder`` mirrors the reference trainers' ``--network`` dispatch.
 """
@@ -7,8 +8,9 @@ heads (PairSim, PairSim2, PDDM) and their all-pairs scorers.
 from __future__ import annotations
 
 from multimodal_similarity_tpu_torch.models.encoders import (
-    BRANCH_EMB_DIM, RTSN, TSN, ConvBiRTSN, ConvEmbed, ConvLSTM, ConvRTSN,
-    ConvTSN, ConvTSNClassifier, CUBLayer, Dropout, OutputLayer)
+    BRANCH_EMB_DIM, RTSN, SAE, TSN, ConvBiRTSN, ConvEmbed, ConvLSTM,
+    ConvRTSN, ConvTSN, ConvTSNClassifier, CUBLayer, Dropout, OutputLayer,
+    Seq2seqTSN)
 from multimodal_similarity_tpu_torch.models.heads import (
     PDDM, PairSim, PairSim2, score_all_pairs, score_all_pairs_sym, score_rows)
 from multimodal_similarity_tpu_torch.models.inception_v2 import (
@@ -52,7 +54,8 @@ def build_encoder(network: str, *, num_seg: int = 3, emb_dim: int = 128,
 
 __all__ = ["BRANCH_EMB_DIM", "TSN", "RTSN", "ConvEmbed", "ConvTSN",
            "ConvTSNClassifier", "ConvRTSN", "ConvBiRTSN",
-           "ConvLSTM", "OutputLayer", "CUBLayer", "Dropout", "LSTM", "BiLSTM",
+           "ConvLSTM", "Seq2seqTSN", "SAE", "OutputLayer", "CUBLayer",
+           "Dropout", "LSTM", "BiLSTM",
            "TFLSTMCell", "PDDM", "PairSim", "PairSim2", "score_all_pairs",
            "score_rows", "score_all_pairs_sym", "InceptionV2",
            "ENDPOINT_CHANNELS", "build_encoder"]

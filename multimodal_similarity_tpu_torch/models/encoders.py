@@ -1,6 +1,7 @@
 """Temporal encoders (``torch.nn``).
 
-Counterparts of the JAX package's ``models/encoders.py``: the 1x1 "conv"
+Counterparts of the JAX package's ``models/encoders.py``, the two
+pretraining autoencoders (``Seq2seqTSN``, ``SAE``) included: the 1x1 "conv"
 embedding is a Linear over the channel axis, the LSTM is the hand-written
 TF cell (models/lstm.py), and dropout sits where the reference put it (input
 dropout on the recurrent encoders, plain dropout in the MLPs).  Inputs keep
@@ -200,6 +201,85 @@ class ConvLSTM(nn.Module):
         idx = (seq_len.to(torch.int64) - 1).reshape(-1, 1, 1)
         return outputs.gather(
             1, idx.expand(-1, 1, outputs.shape[-1]))[:, 0]
+
+
+def _xavier(rows: int, cols: int, generator: Generator) -> nn.Parameter:
+    """A raw [rows, cols] weight, Xavier-uniform (symmetric in the fans, so
+    the flax [in, out] layout keeps its limit)."""
+    w = torch.empty(rows, cols)
+    nn.init.xavier_uniform_(w, generator=generator)
+    return nn.Parameter(w)
+
+
+def _zeros(size: int) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(size))
+
+
+class Seq2seqTSN(nn.Module):
+    """LSTM encoder-decoder autoencoder over TSN segments, for unsupervised
+    pretraining; returns (hidden [B, emb], x_recon [B, n_seg, n_input]).
+
+    ``reverse`` flips the segment order on entry.  Each segment goes
+    through relu(x W_encode + b_encode) and dropout into the encoder LSTM,
+    whose last output is the embedding; the decoder LSTM runs on zero
+    inputs from the encoder's final state, and each of its outputs goes
+    through relu(. W_decode1 + b_decode1), then the tied W_encode^T +
+    b_decode2.  The raw weights are ``[in, out]`` parameters named as the
+    flax ones (``convert.py`` maps them without a transpose)."""
+
+    def __init__(self, n_seg: int, n_input: int = 8, emb_dim: int = 128,
+                 reverse: bool = False, keep_prob: float = 1.0,
+                 generator: Generator = None,
+                 dropout_generator: Generator = None):
+        super().__init__()
+        self.n_seg, self.n_input, self.emb_dim = n_seg, n_input, emb_dim
+        self.reverse = reverse
+        self.W_encode = _xavier(n_input, emb_dim, generator)
+        self.b_encode = _zeros(emb_dim)
+        self.W_decode1 = _xavier(emb_dim, emb_dim, generator)
+        self.b_decode1 = _zeros(emb_dim)
+        self.b_decode2 = _zeros(n_input)
+        self.dropout = Dropout(1.0 - keep_prob, dropout_generator)
+        self.encoder = LSTM(emb_dim, emb_dim, generator=generator)
+        self.decoder = LSTM(n_input, emb_dim, generator=generator)
+
+    def forward(self, x: torch.Tensor):
+        x = x.to(self.W_encode.dtype)
+        if self.reverse:
+            x = x.flip(1)
+        b = x.shape[0]
+        h = torch.relu(x.reshape(-1, self.n_input) @ self.W_encode
+                       + self.b_encode)
+        h = self.dropout(h.reshape(b, self.n_seg, self.emb_dim))
+        enc_out, enc_state = self.encoder(h)
+        dec_out, _ = self.decoder(
+            x.new_zeros((b, self.n_seg, self.n_input)), enc_state)
+        hd = torch.relu(dec_out.reshape(-1, self.emb_dim) @ self.W_decode1
+                        + self.b_decode1)
+        x_recon = hd @ self.W_encode.T + self.b_decode2
+        return enc_out[:, -1], x_recon.reshape(b, self.n_seg, self.n_input)
+
+
+class SAE(nn.Module):
+    """2-layer tied-weight autoencoder on flat [B, n_input] rows; returns
+    (hidden [B, emb], x_recon [B, n_input]): hidden = relu(x W_1 + b_1) W_2
+    + b_2, x_recon = relu(hidden W_2^T + b_3) W_1^T + b_4."""
+
+    def __init__(self, n_input: int = 8, emb_dim: int = 128,
+                 generator: Generator = None):
+        super().__init__()
+        self.W_1 = _xavier(n_input, emb_dim, generator)
+        self.b_1 = _zeros(emb_dim)
+        self.W_2 = _xavier(emb_dim, emb_dim, generator)
+        self.b_2 = _zeros(emb_dim)
+        self.b_3 = _zeros(emb_dim)
+        self.b_4 = _zeros(n_input)
+
+    def forward(self, x: torch.Tensor):
+        x = x.to(self.W_1.dtype)
+        hidden = torch.relu(x @ self.W_1 + self.b_1) @ self.W_2 + self.b_2
+        h_recon = torch.relu(hidden @ self.W_2.T + self.b_3)
+        return hidden, h_recon @ self.W_1.T + self.b_4
 
 
 class OutputLayer(nn.Module):

@@ -1,9 +1,9 @@
 """The epoch loop of the Honda budget-batch trainers (``pddm_model``,
 ``multitask_model``, ``multitask_dcca``, ``modality_hallucination``,
-``cross_prediction``, ``base_model_classifier`` and their wrappers): the
-loader's batches uploaded on the feed thread (data/device_feed.py), one
-step a batch with its scalars logged without a per-step readback, then per
-epoch a validation and a checkpoint.
+``cross_prediction``, ``base_model_classifier``, ``unimodal_pretrain_sae``
+and their wrappers): the loader's batches uploaded on the feed thread
+(data/device_feed.py), one step a batch with its scalars logged without a
+per-step readback, then per epoch a validation and a checkpoint.
 """
 
 from __future__ import annotations
