@@ -154,9 +154,29 @@ Phases, each fatal on failure (no error is caught):
    against the CPU head); ``base_model_tf`` at base_model's width on
    TFRecords written from the trainers' directory (a native-parsed batch
    against the Python parse, the metrics against the NumPy oracle, the
-   steady step); no launch of any ``csrc/`` kernel; then removes the
-   full-budget directory and prints each phase's native gathers and
-   deferrals (phases 8-15 must have gathered natively).
+   steady step); no launch of any ``csrc/`` kernel;
+17. slice 7 (serving) with no launch of any ``csrc/`` kernel:
+   ``EmbeddingService`` at ConvRTSN full width (phase 15's hallucination
+   core) on requests of 256 events, f32, int8 quantized on the host and
+   int8 quantized beforehand (ms a request), card vs CPU on 32 events;
+   ``RetrievalIndex`` on random unit rows of width 256 with Q = 1024,
+   top-10: the dense path at 65,536 rows, the chunked path at 400,000 (7
+   chunks; also squared Euclidean) and the int8 gallery at both, each with
+   its one-time upload, device bytes, warm query time and queries a second,
+   f32 results against a float64 top-k on the card, int8 top-10 overlap at
+   least 0.95 with it, 256 queries card vs CPU, and the f32 products
+   unchanged with TF32 switched on; ``export_index`` (phase 13's sensors
+   ``pddm_model`` encoder, f32 and int8) on the full-budget test session,
+   loaded and queried on the card against the CPU's, a second save
+   byte-equal; ``evaluate_baseline`` (mean and max),
+   ``evaluate_hallucination`` (phase 15's checkpoint), ``evaluate_pairsim``
+   and ``check_inconsistent`` (phase 13's ``pairsim_model``, and the PDDM
+   head of its sensors ``pddm_model``) card vs CPU on the same 340 events,
+   ``analysis`` on an ``evaluate_model`` results.pkl; ``python3 -m
+   multimodal_similarity_tpu_torch`` (listing, ``eval.analysis``, and
+   ``preprocess.frames``, which must fail) in subprocesses; then removes
+   the full-budget directory and prints each phase's native gathers and
+   deferrals (phases 8-15 and 17 must have gathered natively).
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -2403,7 +2423,8 @@ def pair_phase(root, steady_root):
     metrics against the NumPy oracle, the PDDM matrix and PairSim's pair
     probabilities on the card against the CPU; then the steady step of
     ``pddm_model`` (sensors) and ``multitask_model``.  Returns the last
-    checkpoint of each ``pddm_model`` run by modality."""
+    checkpoint of each ``pddm_model`` run by modality, and the
+    ``pairsim_model`` run's."""
     import torch
     from multimodal_similarity_tpu_torch.ops.kernels import (
         LAUNCHES, reset_launch_counts)
@@ -2471,6 +2492,8 @@ def pair_phase(root, steady_root):
           f"{json.dumps(launches)}", flush=True)
     expect_launches("pairsim", launches, none)
     check_pairsim("pairsim", res, cfg, pair_root)
+    pairsim_ckpt = os.path.join(res.result_dir,
+                                f"{cfg.name}.ckpt-{res.step}")
     del res
 
     times = {}
@@ -2483,7 +2506,7 @@ def pair_phase(root, steady_root):
     torch.cuda.empty_cache()
     print(f"[pair] steady state (s a loader draw) {json.dumps(times)}; pair "
           f"phase {time.time() - t_phase:.1f} s", flush=True)
-    return ckpts
+    return ckpts, pairsim_ckpt
 
 
 # ---------------------------------------------------------------------------
@@ -3167,7 +3190,8 @@ def slice6_phase(root, ckpts, full_root):
     test session of ``full_root``; then the
     steady step of ``multitask_dcca``, ``modality_hallucination`` and
     ``cross_prediction`` on ``full_root`` (batches of 1000 real events),
-    which phase 16 reads next."""
+    which phase 16 reads next.  Returns the ``modality_hallucination``
+    checkpoint (phase 17 serves its core)."""
     import random
 
     import numpy as np
@@ -3238,6 +3262,8 @@ def slice6_phase(root, ckpts, full_root):
         if not all(v > 0 for v in hal):
             fail(f"{tag}: hal_loss {hal} not positive")
         runs[tag] = (res, cfg)
+    res, cfg = runs["hallucination"]
+    hal_ckpt = os.path.join(res.result_dir, f"{cfg.name}.ckpt-{res.step}")
 
     cfg = slice6_cfg(root, "smoke_cross", ckpts, feat="resnet,sensors",
                      sensors_path=None, segment_path=None, label_num=93,
@@ -3313,6 +3339,7 @@ def slice6_phase(root, ckpts, full_root):
           f"dcca deltas {json.dumps(dcca_deltas)}, ms {json.dumps(dcca_ms)};"
           f" eval {json.dumps(evals)}; slice 6a phase "
           f"{time.time() - t_phase:.1f} s", flush=True)
+    return hal_ckpt
 
 
 NATIVE_REPEATS = 2
@@ -3668,6 +3695,478 @@ def pretrain_phase(root, full_root):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 7: serving, export_index, the other evaluation CLIs, the dispatcher
+# ---------------------------------------------------------------------------
+
+# a request: 256 events at ConvRTSN full width (302 MB in f32), the
+# service's batch; SERVE_CHECK of them held against the CPU
+SERVE_EVENTS, SERVE_CHECK = 256, 32
+# the gallery's rows (RESULTS.md: 200k-400k x 256 galleries, Q = 1024,
+# top-10): the dense path at one chunk, the chunked path at 7 chunks of
+# the default 65,536
+INDEX_DIM, INDEX_QUERIES, INDEX_K = 256, 1024, 10
+INDEX_ROWS = {"dense": 65_536, "chunked": 400_000}
+INDEX_CPU_QUERIES = 256
+# f32 top-k against float64, and card against CPU: indices equal wherever
+# neighbouring distances are more than INDEX_GAP apart (relative); f32
+# distances within INDEX_RTOL, int8 ones within INT8_ATOL
+INDEX_GAP = INDEX_RTOL = 1e-5
+INT8_ATOL = 3e-4
+# the int8 gallery's top-10 overlap with the exact index
+# (tests/test_serving.py:227)
+INT8_OVERLAP = 0.95
+
+
+def separated(d, gap=INDEX_GAP):
+    """[Q, k + 1] ascending distances -> ([Q] rows whose top k is apart
+    from the next, [Q] rows whose every neighbour is apart)."""
+    import numpy as np
+    rel = np.diff(d, axis=1) > gap * np.maximum(np.abs(d[:, 1:]), 1e-30)
+    return rel[:, -1], rel.all(axis=1)
+
+
+def same_topk(tag, got, want, want_next, atol=0.0, rtol=INDEX_RTOL):
+    """``got`` (d, idx) [Q, k] against ``want`` (d, idx) [Q, k] and the
+    (k+1)-th distances ``want_next`` [Q]: the top-k sets equal where the
+    k-th and (k+1)-th distances are apart, the order equal where every
+    neighbour is, distances within ``rtol`` / ``atol``.  Returns the
+    count of rows each rule checked."""
+    import numpy as np
+    d_want = np.concatenate([want[0], want_next[:, None]], axis=1)
+    set_rows, order_rows = separated(d_want)
+    for r in np.flatnonzero(set_rows):
+        if set(got[1][r]) != set(want[1][r]):
+            fail(f"{tag}: query {r}'s top-{got[1].shape[1]} set differs")
+    if not np.array_equal(got[1][order_rows], want[1][order_rows]):
+        fail(f"{tag}: the top-k order differs on a separated query")
+    np.testing.assert_allclose(got[0], want[0], rtol=rtol, atol=atol,
+                               err_msg=tag)
+    return int(set_rows.sum()), int(order_rows.sum())
+
+
+def unit_rows(n, d, seed):
+    """[n, d] random unit f32 rows, drawn on the card, as a host array."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).cpu().numpy()
+
+
+def f64_topk(queries, gallery, k, metric):
+    """The float64 dense top-(k + 1) on the card: (d [Q, k], idx [Q, k],
+    the (k + 1)-th distances [Q])."""
+    import torch
+    q = torch.from_numpy(queries).cuda().double()
+    g = torch.from_numpy(gallery).cuda().double()
+    d = ((q * q).sum(1)[:, None] + (g * g).sum(1)[None]
+         - 2.0 * q @ g.T).clamp_(min=0.0)
+    if metric == "euclidean":
+        d = d.sqrt_()
+    val, idx = torch.topk(d, k + 1, dim=1, largest=False, sorted=True)
+    del d, q, g
+    val, idx = val.cpu().numpy(), idx.cpu().numpy()
+    return val[:, :k], idx[:, :k], val[:, k]
+
+
+def gallery_bytes(index):
+    t = index._device_gallery
+    return sum(x.numel() * x.element_size()
+               for x in (t if isinstance(t, tuple) else (t,)))
+
+
+def index_cell(tag, gallery, queries, oracle, metric="euclidean",
+               int8=False):
+    """One index on the card over ``gallery``: its one-time upload (int8:
+    quantizing included), its device bytes, the warm query time of
+    ``queries`` (CUDA events around 5 calls, each from the host array to
+    the results on the host) and queries a second; the results against
+    the float64 ``oracle`` (f32: ``same_topk``; int8: overlap) and, on
+    INDEX_CPU_QUERIES queries, against the same index on the CPU.  Returns
+    its row of numbers."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.serving import RetrievalIndex
+    index = RetrievalIndex(INDEX_DIM, metric=metric, int8_gallery=int8)
+    index.add(gallery)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index._gallery_on_device()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    ms = call_ms(lambda: index.query(queries, k=INDEX_K), iters=5,
+                 warmup=1)
+    d, idx, _ = index.query(queries, k=INDEX_K)
+    path = ("int8" if int8 else
+            "chunked" if len(index) > index.gallery_chunk else "dense")
+    row = {"rows": len(index), "path": path, "metric": metric,
+           "upload_s": round(upload_s, 4), "device_bytes": gallery_bytes(
+               index), "query_ms": round(ms, 4),
+           "queries_per_s": round(INDEX_QUERIES / ms * 1e3, 1)}
+    # where the query's time goes: its device work alone (CUDA-graph
+    # replay); the dense path's product and selection apart
+    q = torch.from_numpy(queries).cuda()
+    row["device_ms"] = round(device_ms(lambda: index._topk(q, INDEX_K),
+                                       reps=3, iters=3), 4)
+    if path == "dense":
+        from multimodal_similarity_tpu_torch.ops.chunked_topk import (
+            ieee_f32, smallest_k)
+        from multimodal_similarity_tpu_torch.ops.distances import (
+            pairwise_distance)
+        with ieee_f32():
+            dist = pairwise_distance(q, index._device_gallery, metric)
+            row["product_ms"] = round(device_ms(lambda: pairwise_distance(
+                q, index._device_gallery, metric), reps=3, iters=3), 4)
+        row["select_ms"] = round(device_ms(lambda: smallest_k(
+            dist, INDEX_K), reps=3, iters=3), 4)
+        del dist
+    od, oi, onext = oracle
+    if int8:
+        overlap = float(np.mean([len(set(a) & set(b)) / INDEX_K
+                                 for a, b in zip(oi, idx)]))
+        row["overlap"] = overlap
+        if overlap < INT8_OVERLAP:
+            fail(f"{tag}: int8 top-{INDEX_K} overlap {overlap} < "
+                 f"{INT8_OVERLAP}")
+    else:
+        row["f64_rows"] = same_topk(f"{tag} vs float64", (d, idx),
+                                    (od, oi), onext)
+    host = RetrievalIndex(INDEX_DIM, metric=metric, int8_gallery=int8,
+                          device="cpu")
+    host.add(gallery)
+    nq = INDEX_CPU_QUERIES
+    cd, ci, _ = host.query(queries[:nq], k=INDEX_K + 1)
+    row["cpu_rows"] = same_topk(
+        f"{tag} card vs CPU", (d[:nq], idx[:nq]), (cd[:, :-1], ci[:, :-1]),
+        cd[:, -1], atol=INT8_ATOL if int8 else 0.0)
+    del index, host
+    torch.cuda.empty_cache()
+    print(f"[serve] index {tag}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def tf32_held(gallery, queries):
+    """The dense, chunked and int8 queries with TF32 switched on
+    process-wide, through the legacy flag and through ``fp32_precision``
+    where torch has it, give the bits they give with it off: the products
+    run in IEEE f32 whatever the setting."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.serving import RetrievalIndex
+    flags = torch.backends.cuda.matmul
+    switches = {"allow_tf32": (True, False)}
+    if hasattr(flags, "fp32_precision"):
+        switches["fp32_precision"] = ("tf32", "ieee")
+    out = {}
+    for n, chunk, int8 in ((8192, 65536, False), (8192, 2048, False),
+                           (8192, 65536, True)):
+        tag = "int8" if int8 else "dense" if chunk > n else "chunked"
+        index = RetrievalIndex(INDEX_DIM, gallery_chunk=chunk,
+                               int8_gallery=int8)
+        index.add(gallery[:n])
+        want = index.query(queries, k=INDEX_K)[:2]
+        for key, (on, off) in switches.items():
+            setattr(flags, key, on)
+            try:
+                got = index.query(queries, k=INDEX_K)[:2]
+            finally:
+                setattr(flags, key, off)
+            out[f"{tag}-{key}"] = all(np.array_equal(a, b)
+                                      for a, b in zip(got, want))
+    print(f"[serve] bit-equal with TF32 on {json.dumps(out)}", flush=True)
+    if not all(out.values()):
+        fail("serve: TF32 switched on changed a query's results")
+    return out
+
+
+def retrieval_phase():
+    """RetrievalIndex on random unit rows of width 256: the dense path at
+    65,536 rows, the chunked path at 400,000 (and once squared
+    Euclidean), the int8 gallery at both; Q = 1024, top-10."""
+    import torch
+    gallery = unit_rows(INDEX_ROWS["chunked"], INDEX_DIM, 17)
+    queries = unit_rows(INDEX_QUERIES, INDEX_DIM, 18)
+    cells = {}
+    for size, n in INDEX_ROWS.items():
+        g = gallery[:n]
+        for metric in (("euclidean", "squaredeuclidean")
+                       if size == "chunked" else ("euclidean",)):
+            oracle = f64_topk(queries, g, INDEX_K, metric)
+            tag = f"{size}-{n}" + ("-sq" if metric != "euclidean" else "")
+            cells[tag] = index_cell(tag, g, queries, oracle, metric)
+            if metric == "euclidean":
+                cells[f"int8-{n}"] = index_cell(f"int8-{n}", g, queries,
+                                                oracle, int8=True)
+            torch.cuda.empty_cache()
+    cells["tf32_held"] = tf32_held(gallery, queries)
+    return cells
+
+
+def service_phase(hal_ckpt):
+    """EmbeddingService at ConvRTSN full width with the modality_core of
+    phase 15's hallucination checkpoint: requests of SERVE_EVENTS events
+    (f32; int8 quantized on the host; int8 quantized beforehand), ms a
+    request from the host array to the embeddings on the host; the card
+    against the CPU on SERVE_CHECK events, int8 within 0.05 of f32
+    (tests/test_serving.py), the zero-row request."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.data.device_feed import (
+        quantize_features)
+    from multimodal_similarity_tpu_torch.models import build_encoder
+    from multimodal_similarity_tpu_torch.serving import EmbeddingService
+    from multimodal_similarity_tpu_torch.train.checkpoints import (
+        restore_encoder_params)
+
+    params = restore_encoder_params(hal_ckpt, "modality_core")
+
+    def model():
+        return build_encoder("convrtsn", num_seg=3, emb_dim=128,
+                             n_input=FULL_RESNET[2], n_h=FULL_RESNET[0],
+                             n_w=FULL_RESNET[1], n_C=20)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    events = torch.randn((SERVE_EVENTS, 3) + FULL_RESNET, generator=gen,
+                         device="cuda").cpu().numpy()
+    svc = {"f32": EmbeddingService(model(), params, SERVE_EVENTS),
+           "int8": EmbeddingService(model(), params, SERVE_EVENTS,
+                                    int8=True)}
+    q, s = quantize_features(events)
+    calls = {"f32": lambda: svc["f32"].embed(events),
+             "int8": lambda: svc["int8"].embed(events),
+             "int8_prequantized": lambda: svc["int8"].embed_quantized(q, s)}
+    row = {k: round(call_ms(fn, iters=5, warmup=1), 3)
+           for k, fn in calls.items()}
+    row["request_bytes"] = {"f32": events.nbytes,
+                            "int8": q.numel() + s.numel() * 4}
+    check = events[:SERVE_CHECK]
+    card, errs = {}, {}
+    for kind in ("f32", "int8"):
+        card[kind] = svc[kind].embed(check)
+        cpu = EmbeddingService(model(), params, SERVE_EVENTS,
+                               int8=kind == "int8", device="cpu").embed(check)
+        errs[kind] = float(np.abs(card[kind] - cpu).max()
+                           / np.abs(cpu).max())
+        if card[kind].shape != (SERVE_CHECK, 128) or \
+                not np.isfinite(card[kind]).all() or \
+                errs[kind] > EVAL_EMB_RTOL:
+            fail(f"serve: the {kind} service on the card differs from the "
+                 "CPU")
+    gap = float(np.abs(card["int8"] - card["f32"]).max())
+    row.update(card_vs_cpu=errs, int8_vs_f32=gap)
+    if gap >= 0.05:
+        fail(f"serve: int8 embeddings {gap} from the f32 ones")
+    if svc["int8"].embed(events[:0]).shape != (0, 128):
+        fail("serve: a zero-row request is not (0, 128)")
+    del svc, events, q, s
+    torch.cuda.empty_cache()
+    print(f"[serve] EmbeddingService (ms a request of {SERVE_EVENTS} "
+          f"events) {json.dumps(row)}", flush=True)
+    return row
+
+
+def same_files(a, b):
+    for name in sorted(os.listdir(a)):
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"export: {name} of a second save differs")
+
+
+def export_phase(full_root, sensors_ckpt, out_dir):
+    """export_index on the full-budget directory's test session with phase
+    13's pddm_model sensors encoder, f32 and int8, on the card and on the
+    CPU; each index loaded on the card and queried against the CPU's, and
+    a second save of the loaded index byte-equal to the first."""
+    import numpy as np
+    from multimodal_similarity_tpu_torch.configs import EvalConfig
+    from multimodal_similarity_tpu_torch.eval import export_index
+    from multimodal_similarity_tpu_torch.serving import RetrievalIndex
+    queries = unit_rows(64, 32, 20)
+    out = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "f32"
+        dirs = {}
+        for dev in ("cuda", "cpu"):
+            cfg = EvalConfig(DATA_ROOT=full_root, model_path=sensors_ckpt,
+                             variable_name="encoder", network="rtsn",
+                             feat="sensors", n_input=8, emb_dim=32,
+                             device=dev).resolve()
+            t0 = time.time()
+            dirs[dev] = export_index.run(
+                cfg, os.path.join(out_dir, f"{tag}-{dev}"),
+                int8_gallery=int8)
+            out[f"{tag}_{dev}_s"] = round(time.time() - t0, 3)
+        card = RetrievalIndex.load(dirs["cuda"])
+        host = RetrievalIndex.load(dirs["cpu"], device="cpu")
+        if card.metric != "euclidean" or len(card) != len(host) or \
+                card.int8_gallery != int8:
+            fail(f"export: the {tag} index is not what was exported")
+        d, idx, meta = card.query(queries, k=INDEX_K)
+        hd, hi, _ = host.query(queries, k=INDEX_K + 1)
+        same_topk(f"export {tag} card vs CPU", (d, idx),
+                  (hd[:, :-1], hi[:, :-1]), hd[:, -1],
+                  atol=INT8_ATOL if int8 else 1e-6, rtol=1e-4)
+        if not {"session", "label", "start", "end"} <= set(meta[0][0]):
+            fail("export: metadata lacks session, label or bounds")
+        again = card.save(os.path.join(out_dir, f"{tag}-again"))
+        same_files(dirs["cuda"], again)
+        out[f"{tag}_events"] = len(card)
+        out[f"{tag}_max_err"] = float(np.abs(d - hd[:, :-1]).max())
+    print(f"[serve] export_index {json.dumps(out)}", flush=True)
+    return out
+
+
+# check_inconsistent's threshold in phase 17: every misjudged pair
+INCONSISTENT_THRESHOLD = 0.5
+
+
+def same_pairs(tag, card, cpu):
+    """check_inconsistent's (session, i, j, label_i, label_j, P(similar))
+    lists, card against CPU: equal in order, probabilities within
+    PAIR_PROB_TOL, up to a first difference whose probability lies within
+    PAIR_PROB_TOL of INCONSISTENT_THRESHOLD (a near-tie decided either
+    way; every later entry then shifts).  Returns (len card, len CPU)."""
+    for a, b in zip(card, cpu):
+        if a[:5] != b[:5]:
+            if min(abs(x[5] - INCONSISTENT_THRESHOLD)
+                   for x in (a, b)) > PAIR_PROB_TOL:
+                fail(f"eval: {tag} on the card differs from the CPU: {a} "
+                     f"against {b}")
+            print(f"[serve] {tag}: lists part at a threshold near-tie {a} "
+                  f"/ {b}", flush=True)
+            return len(card), len(cpu)
+        if abs(a[5] - b[5]) > PAIR_PROB_TOL:
+            fail(f"eval: {tag} probabilities differ: {a} against {b}")
+    if len(card) != len(cpu):
+        fail(f"eval: {tag} lists of {len(card)} and {len(cpu)} pairs")
+    return len(card), len(cpu)
+
+
+def eval_cli_phase(full_root, ckpts, pairsim_ckpt, hal_ckpt):
+    """evaluate_baseline (mean and max; NumPy only), evaluate_hallucination
+    (phase 15's checkpoint), evaluate_pairsim (phase 13's pairsim_model),
+    check_inconsistent (--head pddm on phase 13's sensors pddm_model,
+    --head pairsim; threshold INCONSISTENT_THRESHOLD) on the full-budget
+    directory's test session, card against CPU; then analysis on an evaluate_model results.pkl.  Returns
+    that results.pkl's path."""
+    import numpy as np
+    from multimodal_similarity_tpu_torch.configs import EvalConfig
+    from multimodal_similarity_tpu_torch.eval import (
+        analysis, check_inconsistent, evaluate_baseline,
+        evaluate_hallucination, evaluate_model, evaluate_pairsim)
+    conv = dict(network="convrtsn", feat="resnet", emb_dim=128,
+                n_input=FULL_RESNET[2], n_h=FULL_RESNET[0],
+                n_w=FULL_RESNET[1], n_C=20)
+    sensors = dict(network="rtsn", feat="sensors", n_input=8)
+
+    def both(fn, **kw):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.time()
+            got[dev] = fn(EvalConfig(DATA_ROOT=full_root, device=dev,
+                                     **kw).resolve())
+            got[dev + "_s"] = round(time.time() - t0, 3)
+        return got
+
+    out = {}
+    for pool in ("mean", "max"):
+        r = evaluate_baseline.run(EvalConfig(
+            DATA_ROOT=full_root, preprocess_func=pool,
+            **sensors).resolve())
+        out[f"baseline_{pool}"] = (r["mAP"], r["recall"][0])
+    r = both(evaluate_hallucination.run, model_path=hal_ckpt, **conv)
+    err = float(np.abs(r["cuda"]["embeddings"] - r["cpu"]["embeddings"])
+                .max() / np.abs(r["cpu"]["embeddings"]).max())
+    metric = [(r[d]["mAP"], r[d]["recall"][0]) for d in ("cuda", "cpu")]
+    out["hallucination"] = {"card": metric[0], "cpu": metric[1],
+                            "emb_err": err, "s": (r["cuda_s"], r["cpu_s"]),
+                            "width": r["cuda"]["embeddings"].shape[1]}
+    if err > EVAL_EMB_RTOL or r["cuda"]["embeddings"].shape[1] != 160 or \
+            any(abs(a - b) > PAIR_METRIC_TOL for a, b in zip(*metric)):
+        fail("eval: evaluate_hallucination on the card differs from the CPU")
+    r = both(evaluate_pairsim.run, model_path=pairsim_ckpt, emb_dim=128,
+             normalized=False, **sensors)
+    out["pairsim"] = {"card": r["cuda"]["accuracy"],
+                      "cpu": r["cpu"]["accuracy"],
+                      "pairs": r["cuda"]["pairs"],
+                      "s": (r["cuda_s"], r["cpu_s"])}
+    if not r["cuda"]["pairs"] or \
+            abs(r["cuda"]["accuracy"] - r["cpu"]["accuracy"]) > \
+            PAIR_METRIC_TOL or sorted(r["cuda"]["triplets"]) != \
+            sorted(r["cpu"]["triplets"]) or not all(
+                np.array_equal(r["cuda"]["triplets"][k],
+                               r["cpu"]["triplets"][k])
+                for k in r["cpu"]["triplets"]):
+        fail("eval: evaluate_pairsim's triplets or accuracy on the card "
+             "differ from the CPU")
+    # each head on the embeddings it was trained on: pddm_model's
+    # normalised, pairsim_model's not; at INCONSISTENT_THRESHOLD, since the
+    # one-epoch heads are confident about no pair at the CLI's 0.9
+    for head, path, emb in (("pddm", ckpts["sensors"], 32),
+                            ("pairsim", pairsim_ckpt, 128)):
+        r = both(lambda cfg, h=head: check_inconsistent.run(
+            cfg, h, threshold=INCONSISTENT_THRESHOLD),
+                 model_path=path, emb_dim=emb, normalized=head == "pddm",
+                 **sensors)
+        counts = {key: same_pairs(f"check_inconsistent --head {head} {key}",
+                                  r["cuda"][key], r["cpu"][key])
+                  for key in ("false_pos", "false_neg")}
+        if not any(n for n, _ in counts.values()):
+            fail(f"eval: check_inconsistent --head {head} found no pair")
+        out[f"inconsistent_{head}"] = {**counts,
+                                       "s": (r["cuda_s"], r["cpu_s"])}
+    evaluate_model.run(EvalConfig(DATA_ROOT=full_root, model_path=hal_ckpt,
+                                  variable_name="modality_core",
+                                  **conv).resolve())
+    pkl = os.path.join(os.path.dirname(hal_ckpt), "results.pkl")
+    text = analysis.summarize_results(pkl)
+    if "per-class mAP" not in text or "Recall@1" not in text:
+        fail("eval: analysis.summarize_results lacks its sections")
+    out["analysis_lines"] = len(text.splitlines())
+    print(f"[serve] eval CLIs {json.dumps(out)}", flush=True)
+    return pkl
+
+
+def dispatcher_phase(results_pkl):
+    """``python3 -m multimodal_similarity_tpu_torch``: the listing, one
+    eval.* command (analysis on ``results_pkl``) and a preprocess.* one,
+    which must fail."""
+    cmd = [sys.executable, "-m", "multimodal_similarity_tpu_torch"]
+    runs = {"list": [], "eval": ["eval.analysis", results_pkl],
+            "preprocess": ["preprocess.frames"]}
+    out = {}
+    for tag, args in runs.items():
+        t0 = time.time()
+        p = subprocess.run(cmd + args, cwd=HERE, capture_output=True,
+                           text=True, timeout=300)
+        out[tag] = (p.returncode, round(time.time() - t0, 2))
+        if tag == "preprocess":
+            if p.returncode == 0 or "slice 9" not in p.stderr:
+                fail("dispatcher: preprocess.frames did not fail")
+        elif p.returncode != 0 or ("base_model_CUB" if tag == "list"
+                                   else "per-class mAP") not in p.stdout:
+            fail(f"dispatcher: {tag} failed: {p.stderr[-2000:]}")
+    print(f"[serve] dispatcher (rc, s) {json.dumps(out)}", flush=True)
+    return out
+
+
+def serving_phase(full_root, ckpts, pairsim_ckpt, hal_ckpt):
+    """Phase 17: slice 7 on the card; no ``csrc/`` launch."""
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+    t_phase = time.time()
+    reset_launch_counts()
+    service_phase(hal_ckpt)
+    retrieval_phase()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(full_root)) as d:
+        export_phase(full_root, ckpts["sensors"], d)
+    pkl = eval_cli_phase(full_root, ckpts, pairsim_ckpt, hal_ckpt)
+    dispatcher_phase(pkl)
+    expect_launches("serving", dict(LAUNCHES), dict.fromkeys(LAUNCHES, 0))
+    print(f"[serve] phase 17 {time.time() - t_phase:.1f} s", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3741,13 +4240,16 @@ def main():
         launches = counted("trainer", trainer_phase, root, steady_root)
         counted("base_model", base_model_phase, root, steady_root)
         cub = cub_phase(root)
-        ckpts = counted("pair", pair_phase, root, steady_root)
+        ckpts, pairsim_ckpt = counted("pair", pair_phase, root,
+                                      steady_root)
         full_root = counted("multimodal", multimodal_phase, root, ckpts)
-        counted("slice6", slice6_phase, root, ckpts, full_root)
+        hal_ckpt = counted("slice6", slice6_phase, root, ckpts, full_root)
         pretrain_phase(root, full_root)
+        counted("serving", serving_phase, full_root, ckpts, pairsim_ckpt,
+                hal_ckpt)
         shutil.rmtree(full_root)
-    # every Honda loader of phases 8-15 draws TSN segments: each must have
-    # taken the native gather
+    # every Honda loader of phases 8-15 and 17 draws TSN segments: each
+    # must have taken the native gather
     print(f"[native] gathers and deferrals by phase {json.dumps(gathers)}",
           flush=True)
     for tag, counts in gathers.items():

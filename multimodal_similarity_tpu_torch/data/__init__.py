@@ -44,6 +44,7 @@ from multimodal_similarity_tpu_torch.data.tfrecords import (
 )
 from multimodal_similarity_tpu_torch.data.tsn import (
     make_prepare_input,
+    max_pool_input,
     mean_pool_input,
     rnn_prepare_input,
     tsn_prepare_input,
@@ -54,7 +55,7 @@ __all__ = [
     "prepare_dataset", "prepare_multimodal_dataset", "load_data_and_label",
     "load_validation_set", "modality_suffix", "SessionBatchLoader",
     "generate_synthetic_honda",
-    "tsn_prepare_input", "tsn_prepare_input_test", "mean_pool_input",
+    "tsn_prepare_input", "tsn_prepare_input_test", "mean_pool_input", "max_pool_input",
     "rnn_prepare_input", "make_prepare_input", "native_crc32c",
     "native_gather_segments", "native_load_event_batch",
     "encode_sequence_example", "parse_sequence_example", "write_tfrecord",

@@ -5,7 +5,8 @@ Train time draws one random frame per segment; test time takes each
 segment's centre frame.  ``rnn_prepare_input`` zero-pads or truncates a
 window to a fixed frame count (the ConvLSTM input), and
 ``mean_pool_input`` pools a whole window (the cross-prediction trainer's
-regression target).
+regression target; with ``max_pool_input``, the no-model baseline's
+features).
 """
 
 from __future__ import annotations
@@ -43,6 +44,15 @@ def mean_pool_input(feat: np.ndarray, flatten: bool = True) -> np.ndarray:
     """Mean over the time axis: [time_steps, ...] -> [1, D] (flattened) or
     [1, ...]."""
     new_feat = np.mean(feat, axis=0)
+    if flatten:
+        new_feat = new_feat.flatten()
+    return np.expand_dims(new_feat, 0)
+
+
+def max_pool_input(feat: np.ndarray, flatten: bool = True) -> np.ndarray:
+    """Max over the time axis: [time_steps, ...] -> [1, D] (flattened) or
+    [1, ...]."""
+    new_feat = np.max(feat, axis=0)
     if flatten:
         new_feat = new_feat.flatten()
     return np.expand_dims(new_feat, 0)

@@ -1,0 +1,299 @@
+"""Serving: embed events and query a retrieval gallery.
+
+``EmbeddingService`` embeds requests with a trained encoder in eval mode,
+``batch_size`` events a forward, f32 or (``int8=True``) quantized on the
+host before the upload and dequantized on the device.  ``RetrievalIndex``
+holds a gallery of embeddings, f32 or int8 rows, uploaded to the device
+once per ``add()`` generation, and answers exact top-k queries: one
+distance product and a top-k for a gallery of up to ``gallery_chunk`` rows,
+the chunked walk of ``ops/chunked_topk.py`` beyond it, and always that walk
+for an int8 gallery.  Indexes persist with ``save`` / ``load`` in the JAX
+package's format (the same files, byte for byte), so an index written by
+either package serves in the other.
+
+Both classes run on ``cuda`` unless the caller passes ``device="cpu"``.  A
+gallery sharded over several devices (``mesh=``) is slice 8 of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from multimodal_similarity_tpu_torch import resolve_device
+from multimodal_similarity_tpu_torch.data.device_feed import (
+    dequant_features, quantize_features)
+from multimodal_similarity_tpu_torch.ops.chunked_topk import (
+    chunked_topk, chunked_topk_quantized, ieee_f32, smallest_k)
+from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
+from multimodal_similarity_tpu_torch.train.steps import (
+    embed_in_chunks, make_embed_fn)
+
+
+class EmbeddingService:
+    """Eval-mode embedding of requests, ``batch_size`` events a forward.
+
+    ``params``, when given, is a state dict loaded strictly into ``model``.
+    ``int8=True`` quantizes each request on the host
+    (``data/device_feed.quantize_features``) before the upload, a quarter
+    of the f32 bytes on the wire, and dequantizes on the device as bf16 q *
+    scale; ``embed_quantized`` takes a request quantized by the client.  A
+    hot swap is ``svc.model.load_state_dict(new)``: both request paths read
+    the module's weights at each call."""
+
+    def __init__(self, model: nn.Module, params=None, batch_size: int = 256,
+                 normalized: bool = True, int8: bool = False, device=None):
+        self.device = resolve_device(device)
+        if params is not None:
+            model.load_state_dict(params, strict=True)
+        self.model = model.to(self.device).eval()
+        self.batch_size = batch_size
+        self.int8 = int8
+        self._embed = make_embed_fn(self.model, normalized=normalized)
+
+    def _no_rows(self, shape) -> np.ndarray:
+        """(0, emb_dim) for a zero-row request: one probe forward reads the
+        width."""
+        probe = self._embed(torch.zeros((1,) + tuple(shape[1:]),
+                                        device=self.device))
+        return np.zeros((0, probe.shape[-1]), np.float32)
+
+    def embed(self, events: np.ndarray) -> np.ndarray:
+        if events.shape[0] == 0:
+            return self._no_rows(events.shape)
+        if self.int8:
+            return self.embed_quantized(*quantize_features(events))
+        return embed_in_chunks(self._embed, events, self.device,
+                               chunk=self.batch_size).cpu().numpy()
+
+    def embed_quantized(self, q, scale) -> np.ndarray:
+        """Embed a request quantized by ``quantize_features`` (int8 ``q``
+        and its f32 ``scale``, arrays or CPU tensors)."""
+        if q.shape[0] == 0:
+            return self._no_rows(q.shape)
+        q, scale = torch.as_tensor(q), torch.as_tensor(scale)
+        out = [self._embed(dequant_features({
+            "q": q[i:i + self.batch_size].to(self.device),
+            "scale": scale[i:i + self.batch_size].to(self.device)}))
+            for i in range(0, q.shape[0], self.batch_size)]
+        return torch.cat(out).cpu().numpy()
+
+
+class RetrievalIndex:
+    """Gallery of embeddings with exact top-k search on one device.
+
+    ``int8_gallery=True`` keeps rows as int8 with a per-row max-abs scale
+    (g = s * qg) and their exact squared norms: a quarter of the f32
+    gallery's device memory and of each query's gallery read, at a
+    quantization error of about 0.4% of a row's norm (Euclidean metrics
+    only).  Adds accumulate host blocks, joined at the first query after
+    them."""
+
+    def __init__(self, emb_dim: int, metric: str = "euclidean",
+                 mesh=None, gallery_chunk: int = 65536,
+                 int8_gallery: bool = False, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a gallery sharded over a mesh is slice 8 of the port "
+                "(parallel/sharded_eval.py); pass mesh=None")
+        self.device = resolve_device(device)
+        self.emb_dim = emb_dim
+        self.metric = metric
+        self.int8_gallery = int8_gallery
+        if int8_gallery and metric not in ("euclidean",
+                                           "squaredeuclidean"):
+            raise NotImplementedError(
+                "int8_gallery supports euclidean metrics only")
+        self.gallery_chunk = gallery_chunk
+        self._blocks: List[np.ndarray] = []
+        self._n = 0
+        self._gallery: Optional[np.ndarray] = None
+        # the device copy, uploaded once per add() generation: a query
+        # never ships the gallery again
+        self._device_gallery = None
+        # int8 artifacts restored by load(): uploaded verbatim, the f32
+        # gallery never materialized
+        self._quant = None
+        self._meta: list = []
+
+    @staticmethod
+    def _quantize_rows(gallery: np.ndarray):
+        """Per-row max-abs int8 quantization and the exact quantized rows'
+        squared norms, in NumPy as the JAX package computes them (the saved
+        artifacts are the same bytes)."""
+        amax = np.maximum(np.max(np.abs(gallery), axis=1, keepdims=True),
+                          1e-12)
+        scale = (amax / 127.0).astype(np.float32)
+        qg = np.clip(np.rint(gallery / scale), -127, 127).astype(np.int8)
+        gsq = ((scale.reshape(-1) ** 2) * np.sum(
+            qg.astype(np.float32) ** 2, axis=1)).astype(np.float32)
+        return qg, scale, gsq
+
+    def add(self, embeddings: np.ndarray, metadata: Optional[Sequence] = None):
+        embeddings = np.asarray(embeddings, np.float32)
+        if metadata is not None and len(metadata) != embeddings.shape[0]:
+            raise ValueError(
+                f"metadata length {len(metadata)} != "
+                f"{embeddings.shape[0]} embeddings — metadata would "
+                f"silently misalign for every later row")
+        if self._quant is not None:
+            # extending a loaded int8 index: its rows dequantized become the
+            # host gallery (re-quantization is per row, so they quantize to
+            # the same bytes again)
+            qg, scale, _ = self._quant
+            self._blocks = [np.asarray(qg, np.float32)
+                            * scale.reshape(-1, 1)]
+            self._quant = None
+        self._blocks.append(embeddings)
+        self._n += embeddings.shape[0]
+        self._gallery = None
+        self._device_gallery = None
+        self._meta.extend(metadata if metadata is not None
+                          else [None] * embeddings.shape[0])
+
+    def __len__(self) -> int:
+        return self._n
+
+    def _gallery_host(self) -> np.ndarray:
+        if self._gallery is None:
+            if not self._blocks and self._quant is not None:
+                qg, scale, _ = self._quant
+                self._blocks = [np.asarray(qg, np.float32)
+                                * scale.reshape(-1, 1)]
+            self._gallery = (self._blocks[0] if len(self._blocks) == 1
+                             else np.concatenate(self._blocks))
+            self._blocks = [self._gallery]
+        return self._gallery
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, path: str) -> str:
+        """Write the index to directory ``path`` (created if needed):
+        ``manifest.json``, ``meta.pkl``, and ``gallery.npy`` (f32) or
+        ``q.npy`` / ``scale.npy`` / ``gsq.npy`` (int8), the JAX package's
+        layout.  Each file goes to a temporary name and is renamed over the
+        old one, the manifest last: saving into the directory the index was
+        loaded from never truncates a file a live mmap reads, and a crashed
+        save leaves no manifest that ``load`` would accept."""
+        if not len(self):
+            raise ValueError("refusing to save an empty gallery")
+        os.makedirs(path, exist_ok=True)
+        manifest = {
+            "format": "msim-retrieval-index", "version": 1,
+            "n": int(len(self)), "emb_dim": int(self.emb_dim),
+            "metric": self.metric, "int8_gallery": bool(self.int8_gallery),
+            "gallery_chunk": int(self.gallery_chunk),
+        }
+
+        def save_npy(name, arr):
+            tmp = os.path.join(path, name + ".tmp.npy")
+            np.save(tmp, arr)
+            os.replace(tmp, os.path.join(path, name + ".npy"))
+
+        if self.int8_gallery:
+            qg, scale, gsq = (self._quant if self._quant is not None
+                              else self._quantize_rows(self._gallery_host()))
+            save_npy("q", qg)
+            save_npy("scale", np.asarray(scale).reshape(-1))
+            save_npy("gsq", gsq)
+        else:
+            save_npy("gallery", self._gallery_host())
+        tmp = os.path.join(path, "meta.pkl.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(self._meta, f)
+        os.replace(tmp, os.path.join(path, "meta.pkl"))
+        tmp = os.path.join(path, "manifest.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(path, "manifest.json"))
+        return path
+
+    @classmethod
+    def load(cls, path: str, mesh=None, gallery_chunk: Optional[int] = None,
+             device=None) -> "RetrievalIndex":
+        """An index saved by either package, its arrays opened as mmaps;
+        it serves the saved instance's top-k without re-embedding (int8
+        artifacts upload verbatim)."""
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        if manifest.get("format") != "msim-retrieval-index":
+            raise ValueError(f"{path!r} is not a saved RetrievalIndex")
+        self = cls(emb_dim=manifest["emb_dim"], metric=manifest["metric"],
+                   mesh=mesh,
+                   gallery_chunk=gallery_chunk or manifest["gallery_chunk"],
+                   int8_gallery=manifest["int8_gallery"], device=device)
+        if manifest["int8_gallery"]:
+            self._quant = tuple(
+                np.load(os.path.join(path, f"{name}.npy"), mmap_mode="r")
+                for name in ("q", "scale", "gsq"))
+            self._n = int(self._quant[0].shape[0])
+        else:
+            gallery = np.load(os.path.join(path, "gallery.npy"),
+                              mmap_mode="r")
+            self._blocks = [gallery]
+            self._n = int(gallery.shape[0])
+        if self._n != manifest["n"]:
+            raise ValueError(
+                f"manifest n={manifest['n']} != stored rows {self._n}")
+        with open(os.path.join(path, "meta.pkl"), "rb") as f:
+            self._meta = pickle.load(f)
+        return self
+
+    def _upload(self, arr) -> torch.Tensor:
+        # a writable host copy first: torch.from_numpy refuses load()'s
+        # read-only mmaps, and a CPU index must not alias the caller's rows
+        return torch.from_numpy(np.array(arr)).to(self.device)
+
+    def _gallery_on_device(self):
+        if self._device_gallery is None:
+            if self.int8_gallery:
+                qg, scale, gsq = (self._quant if self._quant is not None
+                                  else self._quantize_rows(
+                                      self._gallery_host()))
+                self._device_gallery = (
+                    self._upload(qg),
+                    self._upload(np.asarray(scale, np.float32).reshape(-1)),
+                    self._upload(np.asarray(gsq, np.float32)))
+            else:
+                self._device_gallery = self._upload(self._gallery_host())
+        return self._device_gallery
+
+    def _topk(self, q: torch.Tensor, k: int):
+        """(dists [Q, k], indices [Q, k]) of the queries ``q`` on the
+        device, left there."""
+        gallery = self._gallery_on_device()
+        if self.int8_gallery:
+            qg, scale, gsq = gallery
+            return chunked_topk_quantized(
+                q, qg, scale, gsq, k=k,
+                chunk=min(self.gallery_chunk, max(4096, len(self))),
+                metric=self.metric)
+        if len(self) > self.gallery_chunk:
+            return chunked_topk(q, gallery, k=k, chunk=self.gallery_chunk,
+                                metric=self.metric)
+        with ieee_f32():
+            return smallest_k(pairwise_distance(q, gallery, self.metric), k)
+
+    def query(self, queries: np.ndarray, k: int = 10
+              ) -> Tuple[np.ndarray, np.ndarray, list]:
+        """-> (dists [Q, k], indices [Q, k], metadata nested list),
+        ascending, the lowest gallery index first among equal distances; k
+        is clamped to the gallery's size.  A single 1-D query vector is
+        taken as Q=1."""
+        if not len(self):
+            raise ValueError("empty gallery")
+        queries = np.asarray(queries, np.float32)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        d, idx = self._topk(self._upload(queries), min(k, len(self)))
+        d = d.cpu().numpy()
+        idx = idx.cpu().numpy()
+        meta = [[self._meta[j] if j < len(self._meta) else None
+                 for j in row] for row in idx]
+        return d, idx, meta
