@@ -174,9 +174,28 @@ Phases, each fatal on failure (no error is caught):
    head of its sensors ``pddm_model``) card vs CPU on the same 340 events,
    ``analysis`` on an ``evaluate_model`` results.pkl; ``python3 -m
    multimodal_similarity_tpu_torch`` (listing, ``eval.analysis``, and
-   ``preprocess.frames``, which must fail) in subprocesses; then removes
-   the full-budget directory and prints each phase's native gathers and
-   deferrals (phases 8-15 and 17 must have gathered natively).
+   ``preprocess.frames``, which must fail) in subprocesses;
+18. slice 8a, the device feature cache (``cache_phase``): on the
+   full-budget directory the default ``--device_cache_gb`` 6.0 declines
+   with the reference's notice and CACHE_GB builds (a decline fails the
+   run), with the build's time, resident bytes and estimate; one plan
+   gathered on the card and from a CPU copy of the resident arrays under
+   the same uniforms (TSN q, scale, labels, mask bit-equal; the
+   mean-pooled modality within CACHE_MEAN_RTOL); the fused cached
+   semi-hard step against the two-call path (``epoch_batches``, then the
+   plain step; CACHE_TWO_CALL_RTOL); the steady windows of the cached
+   batch-hard step (K=1 and K=4) and the cached flagship
+   ``--device_mining`` step, each with its device busy time and idle
+   share, beside the streamed windows of the same steps; one epoch each of ``base_model_batchhard --device_cache
+   --steps_per_dispatch 4``, ``base_model_lifted --device_cache`` and its
+   ``--no_normalized`` through ``train``, each with its kernel launches
+   (K3 or K1 a step; K6 and K5; K4 and K5) and a cache gather a step; on
+   the 10-session directory one epoch each of ``base_model``,
+   ``multitask_model``, ``pddm_model``, ``cross_prediction`` (mean-pooled
+   target) and ``unimodal_pretrain_sae`` with --device_cache, with no
+   ``csrc/`` launch; then removes the full-budget directory and prints
+   each phase's native gathers and deferrals (phases 8-15 and 17 must
+   have gathered natively).
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -4167,6 +4186,360 @@ def serving_phase(full_root, ckpts, pairsim_ckpt, hal_ckpt):
     print(f"[serve] phase 17 {time.time() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 8a: the device feature cache and the fused cached steps
+# ---------------------------------------------------------------------------
+
+# phase 18's cache budget: the reference's estimate counts 45 frames an
+# event (about 19.2 GB for the full-budget directory) where the resident
+# arrays hold the longest window's 6 (about 2.6 GB); the default 6 GB
+# declines it
+CACHE_GB = 24.0
+# the streamed windows beside the cached ones (the loader takes 2-2.75 s a
+# draw there), and the cached windows' epochs of 4 draws after a warm one
+CACHE_WARM, CACHE_DRAWS, CACHE_EPOCHS = 1, 3, 3
+# the meanpool gather on the card against the CPU: the largest difference
+# within CACHE_MEAN_RTOL of the CPU mean's largest entry (f32 sums of 6
+# frames in another order)
+CACHE_MEAN_RTOL = 1e-6
+# the fused cached step against the two-call path: the loss, relative
+CACHE_TWO_CALL_RTOL = 1e-5
+
+
+def gather_on_card_vs_cpu(cache):
+    """One plan of ``cache`` (three modalities: TSN, mean-pooled, TSN)
+    gathered on the card and from a CPU copy of its resident arrays, the
+    uniforms drawn once on the CPU and passed to both: q, scale, labels
+    and mask bit-equal, the mean within CACHE_MEAN_RTOL."""
+    import copy
+
+    import torch
+    from multimodal_similarity_tpu_torch.data import tsn
+
+    cpu = copy.copy(cache)
+    cpu.device = torch.device("cpu")
+    cpu.q = [q.cpu() for q in cache.q]
+    cpu.scale = [s.cpu() for s in cache.scale]
+    cpu.seq_len, cpu.label_dev = cache.seq_len.cpu(), cache.label_dev.cpu()
+    plan = next(cache.epoch_plans())
+    gen = torch.Generator().manual_seed(18)
+    uniforms = [torch.rand((cache.event_budget, cache.n_seg), generator=gen)
+                for _ in range(2)]
+    real = tsn.draw_tsn_uniforms
+    out = {}
+    try:
+        for side, c in (("cuda", cache), ("cpu", cpu)):
+            c.modality_modes = ("tsn", "meanpool", "tsn")
+            queue = list(uniforms)
+            tsn.draw_tsn_uniforms = (
+                lambda gen, b, n, device, q=queue: q.pop(0).to(device))
+            out[side] = c.gather(torch.from_numpy(plan["packed"]).to(side),
+                                 None)
+    finally:
+        tsn.draw_tsn_uniforms = real
+        cache.modality_modes = None
+    (gm, glab, gmask), (wm, wlab, wmask) = out["cuda"], out["cpu"]
+    same = (torch.equal(glab.cpu(), wlab) and torch.equal(gmask.cpu(), wmask)
+            and all(torch.equal(gm[m][k].cpu(), wm[m][k])
+                    for m in (0, 2) for k in ("q", "scale")))
+    err = float((gm[1].cpu() - wm[1]).abs().max() / wm[1].abs().max())
+    print(f"[cache] gather card vs CPU on one plan ({plan['num_events']} "
+          f"real events): TSN q/scale, labels, mask bit-equal {same}; "
+          f"meanpool max relative difference {err:.3g}", flush=True)
+    if not same or not err <= CACHE_MEAN_RTOL:
+        fail("cache: the gather on the card differs from the CPU's")
+
+
+def two_call_vs_fused(cache, cfg):
+    """The fused cached semi-hard step against the two-call path
+    (``epoch_batches``, then the plain fused step) on the same plan, from
+    the same weights and generators: the loss within CACHE_TWO_CALL_RTOL."""
+    import torch
+    from multimodal_similarity_tpu_torch.models import build_encoder
+    from multimodal_similarity_tpu_torch.train.cached_steps import (
+        make_cached_triplet_step, upload_plans)
+    from multimodal_similarity_tpu_torch.train.state import build_optimizer
+    from multimodal_similarity_tpu_torch.train.steps import (
+        make_triplet_train_step)
+
+    def model():
+        m = build_encoder(cfg.network, num_seg=cfg.num_seg,
+                          emb_dim=cfg.emb_dim, n_input=cfg.n_input,
+                          n_h=cfg.n_h, n_w=cfg.n_w, n_C=cfg.n_C,
+                          keep_prob=1.0,
+                          generator=torch.Generator().manual_seed(0)).cuda()
+        return m, build_optimizer("ADAM", m, cfg.learning_rate)
+
+    def gens():
+        return (torch.Generator(device="cuda").manual_seed(5),
+                torch.Generator(device="cuda").manual_seed(6))
+
+    kw = dict(triplet_per_batch=200, alpha=cfg.alpha, num_negative=5)
+    state = cache.rng.get_state()
+    g_gather, g_mine = gens()
+    batch = next(cache.epoch_batches(g_gather))
+    plain = make_triplet_train_step(*model(), **kw, generator=g_mine)
+    want = float(plain(batch["events"], batch["labels"], batch["mask"],
+                       cfg.learning_rate)["loss"])
+    cache.rng.set_state(state)
+    g_gather, g_mine = gens()
+    fused = make_cached_triplet_step(*model(), cache, **kw,
+                                     gather_generator=g_gather,
+                                     mine_generator=g_mine)
+    got = float(fused(upload_plans(next(cache.epoch_plans())["packed"],
+                                   "cuda"), cfg.learning_rate)["loss"])
+    rel = abs(got - want) / abs(want)
+    print(f"[cache] fused cached step loss {got:.8f} vs two-call "
+          f"{want:.8f} (relative {rel:.3g})", flush=True)
+    if not rel <= CACHE_TWO_CALL_RTOL:
+        fail("cache: the fused cached step differs from the two-call path")
+
+
+def cached_window(tag, exp, cache, fused, plans, k, epochs=CACHE_EPOCHS):
+    """The cached path's steady state: after one warm epoch, ``epochs``
+    epochs of the trainer's cached loop (``run_cached_epoch``: the plans
+    of ``plans()``, whole K windows issued back to back, scalars read at
+    each epoch's end), synchronised at both ends.  Returns ``step_s`` (s a
+    draw), ``in_step_s`` (the host's time in the fused steps a draw), the
+    window's ``steps``, and the fused step's device time on one uploaded
+    plan: ``busy_ms`` and ``ops`` (``step_busy_ms``), which set
+    ``idle_share`` = 1 - busy / step_s, and ``event_ms``
+    (``step_event_ms``)."""
+    import torch
+    from multimodal_similarity_tpu_torch.train.cached_steps import (
+        upload_plans)
+    host = [0.0]
+
+    def timed(plan, lr):
+        t = time.perf_counter()
+        out = fused(plan, lr)
+        host[0] += time.perf_counter() - t
+        return out
+
+    exp.cfg.steps_per_dispatch = k
+    lr = exp.cfg.learning_rate
+    step = exp.run_cached_epoch(cache, timed, lr, 0, 0, plans=plans())
+    torch.cuda.synchronize()
+    host[0], start, t0 = 0.0, step, time.perf_counter()
+    for _ in range(epochs):
+        step = exp.run_cached_epoch(cache, timed, lr, step, 0, plans=plans())
+    torch.cuda.synchronize()
+    draws = epochs * cache.batches_per_epoch
+    out = {"steps": step - start,
+           "step_s": (time.perf_counter() - t0) / draws,
+           "in_step_s": host[0] / draws}
+    plan = upload_plans(plans()[0], "cuda")
+    out["busy_ms"], out["ops"] = step_busy_ms(lambda: fused(plan, lr))
+    out["event_ms"] = step_event_ms(lambda: fused(plan, lr))
+    out["idle_share"] = 1.0 - out["busy_ms"] / 1e3 / out["step_s"]
+    print(f"[{tag}] cached steady state (K={k}): {draws} draws "
+          f"({out['steps']} optimizer steps) after a warm epoch; a draw (s): "
+          f"step_s {out['step_s']:.4f}, in_step_s {out['in_step_s']:.4f}; "
+          f"the step on the card: busy {out['busy_ms']:.3f} ms in "
+          f"{out['ops']:.0f} operations (idle share {out['idle_share']:.3f}), "
+          f"CUDA events {out['event_ms']:.3f} ms", flush=True)
+    return out
+
+
+def cache_phase(root, full_root):
+    """Slice 8a on the card.  On the full-budget directory: the budget gate
+    (the default 6 GB declines with the notice, CACHE_GB builds; a decline
+    fails the run), the build's time, resident bytes and estimate; the
+    gather card vs CPU; the fused cached step against the two-call path;
+    the steady windows of ``base_model_batchhard --device_cache`` (K=1 and
+    --steps_per_dispatch 4: one window an epoch) and ``multimodal_model
+    --device_mining --device_cache`` beside the streamed ones of the same
+    trainers; one epoch of the cached batch-hard (K=4), lifted and
+    --no_normalized lifted trainers through ``train`` with their kernel
+    launches.  On the 10-session directory: one epoch each of
+    ``base_model``, ``multitask_model``, ``pddm_model``,
+    ``cross_prediction`` (mean-pooled target) and ``unimodal_pretrain_sae``
+    with --device_cache: finite losses, a cache gather a step, no
+    ``csrc/`` launch."""
+    import contextlib
+    import io
+    import random
+
+    import torch
+    from multimodal_similarity_tpu_torch.data import device_cache
+    from multimodal_similarity_tpu_torch.models import build_encoder
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, use_triangular)
+    from multimodal_similarity_tpu_torch.train.cached_steps import (
+        make_cached_body_step)
+    from multimodal_similarity_tpu_torch.train.state import build_optimizer
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_model, base_model_batchhard, base_model_lifted, cross_prediction,
+        multimodal_model, multitask_model, pddm_model, unimodal_pretrain_sae)
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+    from multimodal_similarity_tpu_torch.train.trainers._loop import (
+        loader_batches)
+
+    t_phase = time.time()
+    none = dict.fromkeys(LAUNCHES, 0)
+    cfg = full_width_cfg(full_root, "cache_bh", label_num=93,
+                         device_cache=True, device_cache_gb=CACHE_GB)
+    exp = HondaExperiment(cfg, result_dir=os.path.join(full_root, "r_cache"))
+    est = device_cache.estimate_cache_bytes(exp.train_set)
+    notice = io.StringIO()
+    with contextlib.redirect_stdout(notice):
+        declined = device_cache.DeviceFeatureCache.build(
+            exp.train_set, n_seg=cfg.num_seg,
+            sess_per_batch=cfg.sess_per_batch, event_budget=1000,
+            seed=cfg.seed, device="cuda",
+            budget_bytes=device_cache.cache_budget_bytes(6.0))
+    print(f"[cache] default --device_cache_gb 6.0: "
+          f"{notice.getvalue().strip()}", flush=True)
+    if declined is not None or "falling back" not in notice.getvalue():
+        fail("cache: the default budget did not decline the full-budget "
+             "directory")
+    device_cache.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cache = exp.build_cache("cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    if cache is None:
+        fail(f"cache: the build declined at --device_cache_gb {CACHE_GB}")
+    print(f"[cache] built {len(exp.train_set)} sessions in {build_s:.2f} s "
+          f"(page cache warm): {cache.device_bytes} bytes resident, "
+          f"{cache.shard_rows} events x {cache.max_frames} frames, estimate "
+          f"{est} bytes; {cache.batches_per_epoch} batches an epoch",
+          flush=True)
+    two_call_vs_fused(cache, cfg)
+
+    # steady windows: batch-hard cached (K=1, K=4) and streamed
+    device = torch.device("cuda")
+    model = build_encoder(
+        cfg.network, num_seg=cfg.num_seg, emb_dim=cfg.emb_dim,
+        n_input=cfg.n_input, n_h=cfg.n_h, n_w=cfg.n_w, n_C=cfg.n_C,
+        keep_prob=cfg.keep_prob,
+        generator=torch.Generator().manual_seed(0),
+        dropout_generator=torch.Generator(device="cuda").manual_seed(1)
+    ).cuda()
+    opt = build_optimizer("ADAM", model, cfg.learning_rate)
+    fused = base_model_batchhard.make_cached_balanced_step(
+        model, opt, cfg, cache,
+        torch.Generator(device="cuda").manual_seed(2))
+    sel_rng = random.Random(0)
+    times = {}
+    for k in (1, 4):
+        times[f"bh-cached-k{k}"] = cached_window(
+            f"bh-cached-k{k}", exp, cache, fused,
+            lambda: base_model_batchhard.cached_selections(
+                cache, cfg.batch_size, sel_rng), k)
+    step = base_model_batchhard.make_balanced_batch_step(model, opt, cfg)
+    times["bh-streamed"] = steady_step(
+        "bh-streamed", cfg, ("events", "labels"),
+        lambda b: step(b["events"], b["labels"], cfg.learning_rate),
+        base_model_batchhard.balanced_batches(exp, cfg.batch_size,
+                                              random.Random(0)),
+        CACHE_WARM, CACHE_DRAWS)
+    exp.close()
+    del cache, fused, step, model, opt
+    torch.cuda.empty_cache()
+
+    # the flagship: its three-modality cache, the gather card vs CPU, its
+    # cached and streamed windows
+    mcfg = full_width_cfg(full_root, "cache_mm", feat=MM_FEATS,
+                          lambda_multimodal=0.1, multimodal_epochs=0,
+                          num_negative=5, triplet_per_batch=200,
+                          label_num=93, no_joint=True, device_cache=True,
+                          device_cache_gb=CACHE_GB)
+    mexp = HondaExperiment(mcfg, modalities=MM_FEATS.split(","),
+                           result_dir=os.path.join(full_root, "r_cache_mm"))
+    mcache = mexp.build_cache("cuda")
+    if mcache is None:
+        fail("cache: the flagship's build declined")
+    gather_on_card_vs_cpu(mcache)
+    mm = multimodal_model.build_model(mcfg, device, sensors=8, segment=357)
+    mopt = multimodal_model.mm_optimizer(mcfg, mm)
+    mfused = multimodal_model.make_mm_fused_step(
+        mm, mopt, mcfg, torch.Generator(device="cuda").manual_seed(0))
+    cm = multimodal_model.margin_table({0: [0.5]}, device)
+    mcached = make_cached_body_step(
+        lambda ev, lab, m, lr: mfused(*ev, lab, m, cm, 1.0, lr), mcache,
+        torch.Generator(device="cuda").manual_seed(3))
+    times["mm-cached"] = cached_window(
+        "mm-cached", mexp, mcache, mcached,
+        lambda: [p["packed"] for p in mcache.epoch_plans()], 1)
+    times["mm-streamed"] = steady_step(
+        "mm-streamed", mcfg, ("events", "events2", "events3", "labels",
+                              "mask"),
+        lambda b: mfused(b["events"], b["events2"], b["events3"],
+                         b["labels"], b["mask"], cm, 1.0,
+                         mcfg.learning_rate),
+        loader_batches(mexp), CACHE_WARM, CACHE_DRAWS)
+    mexp.close()
+    del mcache, mcached, mfused, mm, mopt
+    torch.cuda.empty_cache()
+    print(f"[cache] steady state (s a draw) {json.dumps(times)}", flush=True)
+
+    # the cached paths through the trainers' entry points, with their
+    # kernel launches: batch-hard (K3 or K1 with winners a step), lifted
+    # normalised (K6 and K5) and not (K4 and K5)
+    launches = {}
+    runs = (("bh", base_model_batchhard.train, {"steps_per_dispatch": 4}),
+            ("lifted", base_model_lifted.train, {}),
+            ("lifted-raw", base_model_lifted.train, {"normalized": False}))
+    for tag, train_fn, kw in runs:
+        device_cache.reset_counts()
+        rcfg = full_width_cfg(full_root, f"cache_{tag}", label_num=93,
+                              max_epochs=1, device_cache=True,
+                              device_cache_gb=CACHE_GB, **kw)
+        res, got, n_val, _, _, _ = drive_trainer(
+            full_root, f"cache-{tag}", train_fn, rcfg)
+        if device_cache.COUNTS != {"build": 1, "gather": res.step}:
+            fail(f"cache-{tag}: cache counts {device_cache.COUNTS} for "
+                 f"{res.step} steps")
+        if tag == "bh":
+            tri = use_triangular(rcfg.batch_size, rcfg.emb_dim, sm_count())
+            name = "batch_hard_tri_idx" if tri else "batch_hard_stats_idx"
+            want = {name: res.step}
+        elif tag == "lifted":
+            want = {"lifted_fwd_tri": res.step + n_val,
+                    "lifted_bwd": res.step, "lifted_fwd": 0}
+        else:
+            want = {"lifted_fwd": res.step + n_val, "lifted_bwd": res.step,
+                    "lifted_fwd_tri": 0}
+        expect_launches(f"cache-{tag}", got, want)
+        launches[tag] = {k: v for k, v in got.items() if v}
+        del res
+    print(f"[launches] cached paths: {json.dumps(launches)}", flush=True)
+
+    # the other trainers with a cached feed, on the 10-session directory
+    others = (
+        ("base-model", base_model.train, full_width_cfg(
+            root, "cache_base", triplet_select="facenet",
+            triplet_per_batch=200, num_negative=5, max_epochs=1), "loss"),
+        ("multitask", multitask_model.train, full_width_cfg(
+            root, "cache_multitask", lambda_ver=0.1, triplet_per_batch=200,
+            max_epochs=1), "ver_loss"),
+        ("pddm", pddm_model.train, pair_cfg(
+            root, "cache_pddm", feat="sensors", n_input=8, label_num=93),
+         "pddm_loss"),
+        ("cross", cross_prediction.train, full_width_cfg(
+            root, "cache_cross", feat="resnet,sensors", max_epochs=1,
+            static_epochs=500), "mse"),
+        ("sae", unimodal_pretrain_sae.train, pair_cfg(
+            root, "cache_sae", feat="sensors", n_input=8, emb_dim=128,
+            label_num=93), "mse"))
+    for tag, train_fn, ocfg, key in others:
+        ocfg.device_cache, ocfg.device_cache_gb = True, CACHE_GB
+        device_cache.reset_counts()
+        res, got, cols = drive_plain(root, f"cache-{tag}", train_fn, ocfg,
+                                     (key,))
+        expect_launches(f"cache-{tag}", got, none)
+        if device_cache.COUNTS != {"build": 1, "gather": res.step}:
+            fail(f"cache-{tag}: cache counts {device_cache.COUNTS} for "
+                 f"{res.step} steps")
+        print(f"[cache-{tag}] {res.step} cached steps, {key} "
+              f"{[round(v, 6) for v in cols[key]]}", flush=True)
+        del res
+    print(f"[cache] phase 18 {time.time() - t_phase:.1f} s", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4247,6 +4620,7 @@ def main():
         pretrain_phase(root, full_root)
         counted("serving", serving_phase, full_root, ckpts, pairsim_ckpt,
                 hal_ckpt)
+        cache_phase(root, full_root)
         shutil.rmtree(full_root)
     # every Honda loader of phases 8-15 and 17 draws TSN segments: each
     # must have taken the native gather

@@ -6,7 +6,10 @@ segment's centre frame.  ``rnn_prepare_input`` zero-pads or truncates a
 window to a fixed frame count (the ConvLSTM input), and
 ``mean_pool_input`` pools a whole window (the cross-prediction trainer's
 regression target; with ``max_pool_input``, the no-model baseline's
-features).
+features).  ``tsn_sample_offsets`` and ``tsn_center_offsets`` are the
+device versions the feature cache (data/device_cache.py) gathers with: the
+frame index of each segment as a tensor, from uniforms drawn by
+``draw_tsn_uniforms``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import functools
 from typing import Callable
 
 import numpy as np
+import torch
 
 
 def tsn_prepare_input(n_seg: int, feat: np.ndarray,
@@ -79,3 +83,41 @@ def make_prepare_input(network: str, n_seg: int = 3, max_time: int = 90,
     if train:
         return functools.partial(tsn_prepare_input, n_seg)
     return functools.partial(tsn_prepare_input_test, n_seg)
+
+
+# ---------------------------------------------------------------------------
+# Device versions
+# ---------------------------------------------------------------------------
+
+def draw_tsn_uniforms(generator: torch.Generator, b: int, n_seg: int,
+                      device) -> torch.Tensor:
+    """[b, n_seg] f32 uniforms in [0, 1) for one TSN draw.  Every device
+    TSN draw goes through here, so a test can replay another package's
+    stream in its place."""
+    return torch.rand((b, n_seg), generator=generator, device=device)
+
+
+def tsn_sample_offsets(generator: torch.Generator, seq_len: torch.Tensor,
+                       n_seg: int) -> torch.Tensor:
+    """Per-event random TSN offsets on the device.
+
+    seq_len -- [B] true frame counts; returns [B, n_seg] int64 frame indices
+    (segment start + the uniform's share of the segment, truncated),
+    clamped to the last frame: the host sampler's scheme for seq_len >=
+    n_seg."""
+    u = draw_tsn_uniforms(generator, seq_len.shape[0], n_seg,
+                          seq_len.device)
+    avg = torch.clamp(seq_len // n_seg, min=1)
+    base = torch.arange(n_seg, device=seq_len.device)[None, :] * avg[:, None]
+    offs = (u * avg[:, None].to(torch.float32)).to(torch.int32)
+    return torch.minimum(base + offs, (seq_len - 1)[:, None]).long()
+
+
+def tsn_center_offsets(seq_len: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Deterministic centre-frame offsets on the device (test time).  No
+    path of the port calls it yet; its tests hold it to the JAX
+    function."""
+    avg = torch.clamp(seq_len // n_seg, min=1)
+    base = torch.arange(n_seg, device=seq_len.device)[None, :] * avg[:, None]
+    return torch.minimum(base + avg[:, None] // 2,
+                         (seq_len - 1)[:, None]).long()

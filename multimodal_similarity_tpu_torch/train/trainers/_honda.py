@@ -1,11 +1,16 @@
 """Shared scaffolding for the Honda-track trainers: dataset preparation,
 the session loader, the validation preload, the result dir, logging and
-checkpointing.  One or more modalities a loader row; single process."""
+checkpointing, and the train feed: the loader's batches uploaded on the
+feed thread, or the device feature cache (``--device_cache``) with its
+epoch of fused cached steps.  One or more modalities a loader row; single
+process."""
 
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence
+import itertools
+import time
+from typing import Callable, Iterable, List, Optional, Sequence
 
 from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.data import (
@@ -15,6 +20,11 @@ from multimodal_similarity_tpu_torch.data import (
     tsn_prepare_input,
     tsn_prepare_input_test,
 )
+from multimodal_similarity_tpu_torch.data.device_cache import (
+    DeviceFeatureCache, cache_budget_bytes, notice_window_shortfall)
+from multimodal_similarity_tpu_torch.data.device_feed import device_prefetch
+from multimodal_similarity_tpu_torch.train.cached_steps import (
+    dispatch_plan_window)
 from multimodal_similarity_tpu_torch.train.checkpoints import (
     CheckpointManager)
 from multimodal_similarity_tpu_torch.train.trainer import setup_experiment
@@ -94,6 +104,112 @@ class HondaExperiment:
         self._deferred = DeferredStepLogs(
             self.logger, flush_every=cfg.log_flush_every,
             echo=not cfg.silent_mode)
+        self.last_cached_aux = None  # the last cached step's scalars
+        self._cached = self._plans = self._stream = None  # open_feed's
+
+    # -- the device feature cache --------------------------------------------
+
+    def build_cache(self, device, modality_modes=None, mesh=None
+                    ) -> Optional[DeviceFeatureCache]:
+        """``--device_cache``: this experiment's train windows (every
+        modality) on ``device`` as int8, built directly on one device, or
+        None when the flag is off or the estimate exceeds
+        ``--device_cache_gb`` (the trainer then streams).  A built cache
+        sets ``batch_per_epoch`` to its plan's."""
+        cfg = self.cfg
+        if not cfg.device_cache:
+            return None
+        if cfg.bf16_features:
+            raise ValueError("--device_cache stores int8; it excludes "
+                             "--bf16_features")
+        if mesh is not None:
+            raise NotImplementedError(
+                "--device_cache on a mesh is not ported yet (ROADMAP slice "
+                "8c)")
+        cache = DeviceFeatureCache.build(
+            self.train_set, n_seg=cfg.num_seg,
+            sess_per_batch=cfg.sess_per_batch,
+            event_budget=self.event_budget, seed=cfg.seed, device=device,
+            budget_bytes=cache_budget_bytes(cfg.device_cache_gb),
+            modality_modes=modality_modes, verbose=not cfg.silent_mode)
+        if cache is not None:
+            self.batch_per_epoch = cache.batches_per_epoch
+            if cfg.steps_per_dispatch > 1:
+                notice_window_shortfall(cache, cfg.steps_per_dispatch,
+                                        cfg.name, cfg.silent_mode)
+        return cache
+
+    def run_cached_epoch(self, cache: DeviceFeatureCache, fused: Callable,
+                         lr: float, step_host: int, epoch: int,
+                         echo: Optional[Callable] = None,
+                         plans: Optional[Sequence] = None) -> int:
+        """One epoch of the cache's plans (or the given host ``plans``)
+        through the fused step ``fused(plan, lr)``, in
+        ``--steps_per_dispatch`` windows issued back to back.  Scalars are
+        logged deferred, ``train_time`` a window's host time a step;
+        ``echo(epoch, step, scalars)`` gives a step's echo line.  The last
+        step's device scalars stay on ``last_cached_aux``.  Returns the new
+        step count."""
+        k = self.cfg.steps_per_dispatch
+        if plans is None:
+            plans = [p["packed"] for p in cache.epoch_plans()]
+        for start in range(0, len(plans), k):
+            win = plans[start:start + k]
+            t0 = time.time()
+            aux_list = dispatch_plan_window(win, lr, fused=fused,
+                                            device=cache.device)
+            dt = (time.time() - t0) / len(win)
+            for aux in aux_list:
+                step_host += 1
+                self.last_cached_aux = aux
+                self._log_step(step_host, aux, dt, lr, epoch, echo)
+        self.flush_logs()
+        return step_host
+
+    # -- the train feed -------------------------------------------------------
+
+    def open_feed(self, device, batches: Iterable, device_keys: Sequence[str],
+                  cached: Optional[tuple] = None,
+                  plans: Optional[Callable] = None, **casts) -> None:
+        """The run's train feed, read by ``run_epoch`` and closed by
+        ``close``: ``cached`` (a (cache, fused step) pair from
+        ``build_cache``) gathers every batch on the device, from an epoch
+        of ``plans()`` when given; otherwise ``batches`` (loader batches,
+        None for a draw to skip) go up on the feed thread with
+        ``device_keys`` and ``casts`` (data/device_feed.py)."""
+        self._cached, self._plans = cached, plans
+        self._stream = None if cached is not None else device_prefetch(
+            batches, device, device_keys=tuple(device_keys), **casts)
+
+    def run_epoch(self, step: Callable, lr: float, step_host: int,
+                  epoch: int, echo: Optional[Callable] = None) -> int:
+        """One epoch of the open feed: the cached epoch, or
+        ``step(batch, lr)`` on each of ``batch_per_epoch`` streamed
+        batches (a None batch or result is skipped).  Scalars are logged
+        deferred, ``train_time`` the step's host enqueue interval (the
+        device time shows in the flush cadence).  Returns the new step
+        count."""
+        if self._cached is not None:
+            return self.run_cached_epoch(
+                *self._cached, lr, step_host, epoch, echo,
+                plans=None if self._plans is None else self._plans())
+        for batch in itertools.islice(self._stream, self.batch_per_epoch):
+            if batch is None:
+                continue
+            t0 = time.time()
+            aux = step(batch, lr)
+            if aux is None:
+                continue
+            step_host += 1
+            self._log_step(step_host, aux, time.time() - t0, lr, epoch, echo)
+        self.flush_logs()
+        return step_host
+
+    def _log_step(self, step_host, aux, dt, lr, epoch, echo):
+        self.log_deferred(
+            step_host, aux, {"train_time": dt, "learning_rate": lr},
+            echo_fn=(None if echo is None else
+                     lambda sc: echo(epoch, step_host, sc)))
 
     def log(self, step: int, scalars, echo: str = ""):
         self.flush_logs()  # keep the JSONL stream step-ordered
@@ -112,5 +228,7 @@ class HondaExperiment:
         self._deferred.flush()
 
     def close(self):
+        if self._stream is not None:
+            self._stream.close()  # cancels the feed and loader threads
         self._deferred.close()
         self.logger.close()

@@ -3,20 +3,23 @@
 ``cross_prediction``, ``base_model_classifier``, ``unimodal_pretrain_sae``
 and their wrappers): the loader's batches uploaded on the feed thread
 (data/device_feed.py), one step a batch with its scalars logged without a
-per-step readback, then per epoch a validation and a checkpoint.
+per-step readback, then per epoch a validation and a checkpoint.  With
+--device_cache (``cache_feed``) the batches are gathered on the device from
+the feature cache inside each fused step instead (data/device_cache.py,
+train/cached_steps.py); the loader is not read.  The feed is the
+experiment's (``HondaExperiment.open_feed`` / ``run_epoch``).
 """
 
 from __future__ import annotations
 
-import itertools
-import time
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from multimodal_similarity_tpu_torch.configs import TrainConfig
-from multimodal_similarity_tpu_torch.data.device_feed import device_prefetch
+from multimodal_similarity_tpu_torch.train.cached_steps import (
+    make_cached_body_step)
 from multimodal_similarity_tpu_torch.train.state import (
     learning_rate_schedule)
 from multimodal_similarity_tpu_torch.train.steps import make_embed_fn
@@ -58,6 +61,19 @@ def retrieval_validation(encoder: nn.Module, cfg: TrainConfig,
     return run
 
 
+def cache_feed(exp: HondaExperiment, cfg: TrainConfig, body: Callable,
+               device: torch.device, modality_modes=None):
+    """--device_cache for a budget trainer: (cache, fused step) with
+    ``body(events, labels, mask, learning_rate)`` over the cache's gathered
+    modalities (``make_cached_body_step``; the gather draws from
+    ``cfg.seed + 4``), or None to stream (flag off, or over budget)."""
+    cache = exp.build_cache(device, modality_modes=modality_modes)
+    if cache is None:
+        return None
+    return cache, make_cached_body_step(
+        body, cache, torch.Generator(device=device).manual_seed(cfg.seed + 4))
+
+
 def run_budget_trainer(cfg: TrainConfig, exp: HondaExperiment,
                        model: nn.Module, optimizer, run: Callable,
                        device: torch.device, step_host: int,
@@ -65,16 +81,24 @@ def run_budget_trainer(cfg: TrainConfig, exp: HondaExperiment,
                        device_keys: Sequence[str] = ("events", "labels",
                                                      "mask"),
                        decay_base: float = 0.001,
-                       echo_keys: Sequence[str] = ()) -> TrainResult:
+                       echo_keys: Sequence[str] = (),
+                       cached=None) -> TrainResult:
     """The loader's batches with ``device_keys`` uploaded on the feed
     thread; ``run(batch, epoch, learning_rate)`` a batch returns the step's
     device scalars, or None for a batch it skips; the scalars are logged
-    without a per-step readback.  Per epoch, ``validation()`` gives the
-    metrics logged and returned, and a checkpoint is saved.  Stops after an
-    epoch without a step.  Closes the feed and ``exp``."""
+    without a per-step readback.  ``cached`` (``cache_feed``'s pair) runs
+    each epoch through the fused cached step instead.  Per epoch,
+    ``validation()`` gives the metrics logged and returned, and a
+    checkpoint is saved.  Stops after an epoch without a step.  Closes the
+    feed and ``exp``."""
+
+    def echo(e, s, sc):
+        return (f"[{cfg.name}] epoch {e + 1} step {s} "
+                + " ".join(f"{k} {sc[k]:.4f}"
+                           for k in ("loss",) + tuple(echo_keys)))
+
     metrics = {}
-    stream = device_prefetch(loader_batches(exp), device,
-                             device_keys=tuple(device_keys))
+    exp.open_feed(device, loader_batches(exp), device_keys, cached=cached)
     try:
         epoch = epoch_of_step(step_host, exp.batch_per_epoch)
         while epoch < cfg.max_epochs:
@@ -82,20 +106,9 @@ def run_budget_trainer(cfg: TrainConfig, exp: HondaExperiment,
                                         cfg.static_epochs, cfg.max_epochs,
                                         decay_base=decay_base)
             step_at_epoch_start = step_host
-            for batch in itertools.islice(stream, exp.batch_per_epoch):
-                t0 = time.time()
-                aux = run(batch, epoch, lr)
-                if aux is None:
-                    continue  # nothing to train this step
-                step_host += 1
-                exp.log_deferred(
-                    step_host, aux,
-                    {"train_time": time.time() - t0, "learning_rate": lr},
-                    echo_fn=lambda sc, e=epoch, s=step_host: (
-                        f"[{cfg.name}] epoch {e + 1} step {s} "
-                        + " ".join(f"{k} {sc[k]:.4f}"
-                                   for k in ("loss",) + tuple(echo_keys))))
-            exp.flush_logs()
+            step_host = exp.run_epoch(
+                lambda batch, lr_: run(batch, epoch, lr_), lr, step_host,
+                epoch, echo)
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
@@ -107,6 +120,5 @@ def run_budget_trainer(cfg: TrainConfig, exp: HondaExperiment,
             exp.ckpt.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
-        stream.close()  # cancels the feed and loader threads
         exp.close()
     return TrainResult(model, optimizer, step_host, metrics, exp.result_dir)

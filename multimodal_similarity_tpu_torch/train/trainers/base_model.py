@@ -23,6 +23,11 @@ leave-one-out validation (no validation loss, as in the JAX trainer), the
 embedding-projector files and a checkpoint.  Single device; no CUDA kernel
 of ``csrc/`` is on this path.
 
+With --device_cache (``facenet`` only, as in JAX) the train windows stay on
+the device as int8 (data/device_cache.py) and a step is one plan upload and
+one fused gather + mine + train (train/cached_steps.py); --steps_per_dispatch
+K issues K such steps back to back.
+
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model --DATA_ROOT <dir> --triplet_select facenet ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
 """
@@ -30,10 +35,8 @@ Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model --DATA
 from __future__ import annotations
 
 import argparse
-import itertools
 import random
 import sys
-import time
 from typing import Optional
 
 import numpy as np
@@ -41,12 +44,13 @@ import torch
 
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
-from multimodal_similarity_tpu_torch.data.device_feed import (
-    device_prefetch, feature_keys)
+from multimodal_similarity_tpu_torch.data.device_feed import feature_keys
 from multimodal_similarity_tpu_torch.models import build_encoder
 from multimodal_similarity_tpu_torch.ops.distances import cdist_rows
 from multimodal_similarity_tpu_torch.ops.mining import (
     select_triplets_facenet, select_triplets_random)
+from multimodal_similarity_tpu_torch.train.cached_steps import (
+    make_cached_triplet_step)
 from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
 from multimodal_similarity_tpu_torch.train.state import (
     build_optimizer, learning_rate_schedule)
@@ -163,6 +167,9 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
         raise ValueError("--int8_features requires the device-fed path "
                          "(--triplet_select facenet); the host miners "
                          "gather dense features")
+    if cfg.device_cache and cfg.triplet_select != "facenet":
+        raise ValueError("--device_cache requires --triplet_select facenet "
+                         "(the device-fed fused step)")
     device = resolve_device(device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
                           result_dir=result_dir, supports_int8=True)
@@ -186,33 +193,33 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     device_keys, run = make_step_runner(cfg, model, optimizer, device,
                                         mine_gen, mine_rng)
 
+    # --device_cache: the train windows stay on the device; a step is one
+    # plan upload and one fused gather + mine + train (None: stream)
+    cache = exp.build_cache(device)
+    cached = None if cache is None else (cache, make_cached_triplet_step(
+        model, optimizer, cache, triplet_per_batch=cfg.triplet_per_batch,
+        alpha=cfg.alpha, num_negative=cfg.num_negative, metric=cfg.metric,
+        normalized=cfg.normalized, lambda_l2=cfg.lambda_l2,
+        gather_generator=torch.Generator(device=device).manual_seed(
+            cfg.seed + 3),
+        mine_generator=mine_gen))
+
+    def echo(e, s, sc):
+        return (f"[{cfg.name}] epoch {e + 1} step {s} loss {sc['loss']:.4f} "
+                f"triplets {sc['triplet_num']:.0f}")
+
     metrics = {}
-    stream = device_prefetch(budget_batches(exp, cfg, mine_rng), device,
-                             device_keys=device_keys, **feature_keys(cfg))
+    exp.open_feed(device, budget_batches(exp, cfg, mine_rng), device_keys,
+                  cached=cached, **feature_keys(cfg))
     try:
         epoch = epoch_of_step(step_host, exp.batch_per_epoch)
         while epoch < cfg.max_epochs:
             lr = learning_rate_schedule(epoch, cfg.learning_rate,
                                         cfg.static_epochs, cfg.max_epochs)
             step_at_epoch_start = step_host
-            for batch in itertools.islice(stream, exp.batch_per_epoch):
-                if batch is None:
-                    continue  # no random triplet in this loader draw
-                t0 = time.time()
-                aux = run(batch, lr)
-                if aux is None:
-                    continue  # the host miner found no triplet
-                step_host += 1
-                # train_time is the host's enqueue interval: the readback
-                # is deferred, so the device time shows in the flush cadence
-                exp.log_deferred(
-                    step_host, aux,
-                    {"train_time": time.time() - t0, "learning_rate": lr},
-                    echo_fn=lambda sc, e=epoch, s=step_host: (
-                        f"[{cfg.name}] epoch {e + 1} step {s} "
-                        f"loss {sc['loss']:.4f} "
-                        f"triplets {sc['triplet_num']:.0f}"))
-            exp.flush_logs()
+            # a None batch has no random triplet, a None step no host-mined
+            # one
+            step_host = exp.run_epoch(run, lr, step_host, epoch, echo)
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
@@ -228,7 +235,6 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
             exp.ckpt.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
-        stream.close()  # cancels the feed and loader threads
         exp.close()
     return TrainResult(model, optimizer, step_host, metrics, exp.result_dir)
 

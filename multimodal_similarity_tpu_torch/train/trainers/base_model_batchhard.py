@@ -5,11 +5,15 @@ l2-normalisation, and a batch-structured objective through fused CUDA
 kernels: batch-hard ("In Defense of the Triplet Loss",
 ops/kernels/batch_hard.py) or, with ``loss_kind="lifted"``, the
 lifted-structured loss (ops/kernels/lifted.py; base_model_lifted.py).  Adam
-(eps=0.1), per-epoch leave-one-out validation and a checkpoint.  Streamed,
-single device: more than one visible GPU is not sharded.  The balanced
+(eps=0.1), per-epoch leave-one-out validation and a checkpoint.  Single
+device: more than one visible GPU is not sharded.  Streamed, the balanced
 selection, its row gather, the --bf16_features cast or --int8_features
 quantizing and the upload run on the feed thread, two batches ahead
-(data/device_feed.py).
+(data/device_feed.py).  With --device_cache the train windows stay on the
+device as int8 (data/device_cache.py): the balanced selection runs on each
+plan's host labels, and one fused step gathers the selected rows' TSN
+frames and trains (``make_cached_balanced_step``); --steps_per_dispatch K
+issues K such steps back to back (train/cached_steps.py).
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard --DATA_ROOT <dir> ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -18,17 +22,17 @@ Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model_batchh
 from __future__ import annotations
 
 import argparse
-import itertools
 import random
 import sys
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.data.device_feed import (
-    dequant_features, device_prefetch, feature_keys)
+    dequant_features, feature_keys)
 from multimodal_similarity_tpu_torch.models import build_encoder
 from multimodal_similarity_tpu_torch.ops.kernels import (
     batch_hard_fused, lifted_loss_fused)
@@ -53,16 +57,19 @@ class TrainResult(NamedTuple):
     result_dir: str
 
 
-def _check_supported(cfg: TrainConfig) -> None:
+def _check_supported(cfg: TrainConfig, no_cache: Optional[str] = None
+                     ) -> None:
     """Raise for every option whose feature is not ported yet, naming the
-    ROADMAP slice that ports it."""
+    ROADMAP slice that ports it.  ``no_cache`` names a trainer that has no
+    cached feed in the JAX package either (which streams there silently):
+    --device_cache raises ValueError on it (ROADMAP D5)."""
+    if no_cache and cfg.device_cache:
+        raise ValueError(f"--device_cache: {no_cache} has no cached feed")
     unported = (
-        (cfg.device_cache, "--device_cache", 8),
-        (cfg.steps_per_dispatch > 1, "--steps_per_dispatch", 8),
-        (cfg.multihost, "--multihost", 8),
-        (cfg.model_parallel > 1, "--model_parallel", 8),
-        (bool(cfg.profile_dir), "--profile_dir", 8),
-        (cfg.watchdog_secs > 0, "--watchdog_secs", 8),
+        (cfg.multihost, "--multihost", "8c"),
+        (cfg.model_parallel > 1, "--model_parallel", "8c"),
+        (bool(cfg.profile_dir), "--profile_dir", "8b"),
+        (cfg.watchdog_secs > 0, "--watchdog_secs", "8b"),
     )
     for is_set, flag, slice_no in unported:
         if is_set:
@@ -118,6 +125,41 @@ def make_balanced_batch_step(model, optimizer, cfg: TrainConfig,
     return step
 
 
+def make_cached_balanced_step(model, optimizer, cfg: TrainConfig, cache,
+                              generator: torch.Generator,
+                              loss_kind: str = "batchhard"):
+    """The fused cached step: step(plan, learning_rate) -> device scalars,
+    ``plan`` a cache plan followed by the balanced rows it selects
+    (``cached_selections``), on the device.  Only the selected rows' TSN
+    frames are gathered (their uniforms drawn for the whole plan, from
+    ``generator``), then the ``loss_kind`` step of
+    ``make_balanced_batch_step``."""
+    inner = make_balanced_batch_step(model, optimizer, cfg, loss_kind)
+    cut = cache.event_budget + 1
+
+    def step(plan: torch.Tensor, learning_rate: float):
+        gathered, labels, _ = cache.gather(plan[:cut], generator,
+                                           rows=plan[cut:].long())
+        return inner(gathered[0], labels, learning_rate)
+
+    return step
+
+
+def cached_selections(cache, batch_size: int, sel_rng: random.Random):
+    """One epoch of the cache's plans with their balanced [B] selection
+    appended (int32), skipping plans with no foreground class: the
+    selection runs on the plan's host labels."""
+    out = []
+    for plan in cache.epoch_plans():
+        valid = np.where(plan["mask_host"] > 0)[0]
+        idx = select_batch_balanced(plan["labels_host"][valid], batch_size,
+                                    rng=sel_rng)
+        if idx.size:
+            out.append(np.concatenate([plan["packed"],
+                                       valid[idx].astype(np.int32)]))
+    return out
+
+
 def balanced_batches(exp: HondaExperiment, batch_size: int,
                      sel_rng: random.Random):
     """One item per loader batch, across epochs, for the feed thread (so
@@ -170,27 +212,31 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
     # JAX trainer's
     sel_rng = random.Random(cfg.seed)
 
+    # --device_cache: the train windows stay on the device; a step is one
+    # plan upload and one fused gather + train (None: stream)
+    cache = exp.build_cache(device)
+    cached = None if cache is None else (cache, make_cached_balanced_step(
+        model, optimizer, cfg, cache,
+        torch.Generator(device=device).manual_seed(cfg.seed + 3), loss_kind))
+
+    def echo(e, s, sc):
+        return f"[{cfg.name}] epoch {e + 1} step {s} loss {sc['loss']:.4f}"
+
+    def run(batch, lr):
+        return step_fn(batch["events"], batch["labels"], lr)
+
     metrics = {}
-    stream = device_prefetch(balanced_batches(exp, batch_size, sel_rng),
-                             device, device_keys=("events", "labels"),
-                             **feature_keys(cfg))
+    exp.open_feed(device, balanced_batches(exp, batch_size, sel_rng),
+                  ("events", "labels"), cached=cached,
+                  plans=lambda: cached_selections(cache, batch_size, sel_rng),
+                  **feature_keys(cfg))
     try:
         epoch = epoch_of_step(step_host, exp.batch_per_epoch)
         while epoch < cfg.max_epochs:
             lr = learning_rate_schedule(epoch, cfg.learning_rate,
                                         cfg.static_epochs, cfg.max_epochs)
             step_at_epoch_start = step_host
-            for batch in itertools.islice(stream, exp.batch_per_epoch):
-                if batch is None:
-                    continue  # no balanced batch in this loader draw
-                aux = step_fn(batch["events"], batch["labels"], lr)
-                step_host += 1
-                exp.log_deferred(
-                    step_host, aux, {"learning_rate": lr},
-                    echo_fn=lambda sc, e=epoch, s=step_host: (
-                        f"[{cfg.name}] epoch {e + 1} step {s} "
-                        f"loss {sc['loss']:.4f}"))
-            exp.flush_logs()
+            step_host = exp.run_epoch(run, lr, step_host, epoch, echo)
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
@@ -203,7 +249,6 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
             exp.ckpt.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
-        stream.close()  # cancels the feed and loader threads
         exp.close()
     return TrainResult(model, optimizer, step_host, metrics, exp.result_dir)
 

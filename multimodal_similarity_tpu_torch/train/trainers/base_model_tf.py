@@ -150,7 +150,7 @@ def train(cfg: TrainConfig, event_per_batch: int = 64,
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step); the JAX trainer
     has no such restore."""
-    _check_supported(cfg)
+    _check_supported(cfg, no_cache="base_model_tf")
     device = resolve_device(device)
     feat, flat_dim, hwc = frame_layout(cfg)
     train_paths = list_event_tfrecords(cfg.tfrecords_root, cfg.train_session)

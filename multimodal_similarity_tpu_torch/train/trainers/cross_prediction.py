@@ -7,9 +7,11 @@ the cross-predicted half of late-fusion evaluation
 epoch logs ``train_mse`` (the last step's) and saves a checkpoint.
 
 Streamed: the loader's batches (TSN segments of the video, the mean-pooled
-target) go up on the feed thread (data/device_feed.py).  Single device;
-``--device_cache`` and its mean-pool cache mode raise (ROADMAP slice 8).
-No CUDA kernel of ``csrc/`` is on this path.
+target) go up on the feed thread (data/device_feed.py).  With
+``--device_cache`` a fused step gathers them from the int8 feature cache
+(_loop.py ``cache_feed``): TSN segments of the video, the target modality
+mean-pooled on the device.  Single device.  No CUDA kernel of ``csrc/`` is
+on this path.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.cross_prediction --DATA_ROOT <dir> --feat resnet,sensors ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -28,6 +30,7 @@ from torch import nn
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.data import mean_pool_input
+from multimodal_similarity_tpu_torch.data.device_feed import dequant_features
 from multimodal_similarity_tpu_torch.models import OutputLayer, build_encoder
 from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
 from multimodal_similarity_tpu_torch.train.state import (
@@ -35,7 +38,7 @@ from multimodal_similarity_tpu_torch.train.state import (
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
 from multimodal_similarity_tpu_torch.train.trainers._loop import (
-    run_budget_trainer)
+    cache_feed, run_budget_trainer)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 
@@ -61,12 +64,14 @@ def make_regression_step(model: nn.ModuleDict, optimizer,
                          cfg: TrainConfig) -> Callable:
     """step(events, targets [B, D], mask [B], learning_rate) -> device
     scalars: the train-mode head output on relu(embedding), the per-row
-    mean squared error averaged over the rows whose ``mask`` is 1."""
+    mean squared error averaged over the rows whose ``mask`` is 1.
+    ``events`` dense or the int8 cache's {"q", "scale"}."""
 
     def step(events, targets, mask, learning_rate: float):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        pred = model["head"](torch.relu(model["encoder"](events)))
+        pred = model["head"](torch.relu(model["encoder"](
+            dequant_features(events))))
         sq = ((targets - pred) ** 2).mean(dim=1)
         mse = (sq * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         total = mse
@@ -109,11 +114,22 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
         last.update(aux)
         return aux
 
-    # no validation pass: the epoch's metric is its last step's MSE
+    # --device_cache: the video's TSN segments and the target's window
+    # mean, both gathered on the device; further modalities ride as TSN
+    cached = cache_feed(
+        exp, cfg, lambda ev, lab, m, lr: step(
+            ev[0], ev[1].reshape(ev[1].shape[0], -1), m, lr), device,
+        modality_modes=("tsn", "meanpool") + ("tsn",) * (len(modalities)
+                                                         - 2))
+
+    # no validation pass: the epoch's metric is its last step's MSE (read
+    # back from the cached path's last step on --device_cache)
     return run_budget_trainer(
         cfg, exp, model, optimizer, run, device, step_host,
-        lambda: {"train_mse": float(last["mse"])},
-        device_keys=("events", "events2", "mask"), echo_keys=("mse",))
+        lambda: {"train_mse": float(
+            (last if cached is None else exp.last_cached_aux)["mse"])},
+        device_keys=("events", "events2", "mask"), echo_keys=("mse",),
+        cached=cached)
 
 
 def main(argv=None):

@@ -27,9 +27,13 @@ the fused [n, n] similarity for ``select_triplets_facenet`` and
 ``select_triplets_mul``; each step is logged with a readback.
 ``--device_mining`` runs ``make_mm_fused_step``: the semi-hard miner, the
 PDDM rows of the sampled anchors and ``mine_hard_structure_triplets_rowwise``
-on the device, with no readback (``log_deferred``).  Single device; the
-device cache, multi-step dispatch and multi-process flags raise
-(ROADMAP slice 8).  No CUDA kernel of ``csrc/`` is on either path.
+on the device, with no readback (``log_deferred``).  With it,
+``--device_cache`` keeps the three modalities on the device as int8 and a
+fused step gathers each batch there (train/cached_steps.py), with the
+class-margin table and the multimodal switch as epoch constants;
+``--steps_per_dispatch`` K issues K such steps back to back.  Single
+device; the multi-process flags raise (ROADMAP slice 8c).  No CUDA kernel
+of ``csrc/`` is on either path.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.multimodal_model --DATA_ROOT <dir> --feat resnet,sensors,segment --sensors_path <ckpt> --segment_path <ckpt> ...
 (``--device_mining`` for the fused step; ``--device cpu`` runs on the CPU;
@@ -39,7 +43,6 @@ the default is ``cuda``.)
 from __future__ import annotations
 
 import argparse
-import itertools
 import os
 import pickle
 import random
@@ -54,7 +57,7 @@ from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.data import LABEL_TRANSFER
 from multimodal_similarity_tpu_torch.data.device_feed import (
-    dequant_features, device_prefetch, feature_keys, take_features)
+    dequant_features, feature_keys, take_features)
 from multimodal_similarity_tpu_torch.models import (
     BRANCH_EMB_DIM, PDDM, RTSN, build_encoder, score_all_pairs_sym,
     score_rows)
@@ -63,6 +66,8 @@ from multimodal_similarity_tpu_torch.ops.losses import triplet_loss_masked
 from multimodal_similarity_tpu_torch.ops.mining import (
     mine_hard_structure_triplets_rowwise,
     mine_semihard_triplets_from_embeddings, select_triplets_facenet)
+from multimodal_similarity_tpu_torch.train.cached_steps import (
+    make_cached_body_step)
 from multimodal_similarity_tpu_torch.train.checkpoints import (
     load_checkpoint, restore_encoder_params)
 from multimodal_similarity_tpu_torch.train.state import (
@@ -458,6 +463,9 @@ def train(cfg: TrainConfig, hard_only: bool = False,
         raise ValueError("--int8_features requires --device_mining (the "
                          "device-fed path); the host miners gather dense "
                          "features")
+    if cfg.device_cache and not device_mining:
+        raise ValueError("--device_cache requires --device_mining (the "
+                         "fused device-fed step)")
     device = resolve_device(device)
     modalities = cfg.feat if isinstance(cfg.feat, list) else \
         ["resnet", "sensors", "segment"]
@@ -495,43 +503,42 @@ def train(cfg: TrainConfig, hard_only: bool = False,
             hard_only=hard_only)
         keys, casts = ("events", "events2", "events3"), {}
 
+    # --device_cache: the three modalities stay on the device; a step is
+    # one plan upload and one fused gather + mine + train, the margin table
+    # and the multimodal switch its epoch constants (None: stream)
+    cache = exp.build_cache(device) if device_mining else None
+    consts = {}
+    cached = None if cache is None else (cache, make_cached_body_step(
+        lambda ev, lab, m, lr: fused(*ev, lab, m, consts["cm"], consts["mm"],
+                                     lr),
+        cache, torch.Generator(device=device).manual_seed(cfg.seed + 3)))
+
+    def run(batch, lr):
+        if device_mining:
+            return fused(batch["events"], batch["events2"], batch["events3"],
+                         batch["labels"], batch["mask"], consts["cm"],
+                         consts["mm"], lr)
+        # None: the facenet miner found no triplet
+        return host_step(batch, lr, consts["mm"] > 0)
+
+    def echo(e, s, sc):
+        return _echo(cfg, e, s, sc["loss"], sc["triplet_count"],
+                     sc["hard_count"], sc["struct_count"])
+
     metrics = {}
-    stream = device_prefetch(loader_batches(exp), device, device_keys=keys,
-                             **casts)
+    exp.open_feed(device, loader_batches(exp), keys, cached=cached, **casts)
     try:
         epoch = epoch_of_step(step_host, exp.batch_per_epoch)
         while epoch < cfg.max_epochs:
             lr = learning_rate_schedule(epoch, cfg.learning_rate,
                                         cfg.static_epochs, cfg.max_epochs,
                                         decay_base=0.01)
-            multimodal = epoch >= cfg.multimodal_epochs
             step_at_epoch_start = step_host
-            if device_mining:
-                # epoch constants: dist_dict changes only at validation
-                cm = margin_table(dist_dict, device)
-            for batch in itertools.islice(stream, exp.batch_per_epoch):
-                if device_mining:
-                    aux = fused(batch["events"], batch["events2"],
-                                batch["events3"], batch["labels"],
-                                batch["mask"], cm, float(multimodal), lr)
-                    step_host += 1
-                    exp.log_deferred(
-                        step_host, aux, {"learning_rate": lr},
-                        echo_fn=lambda sc, e=epoch, s=step_host: _echo(
-                            cfg, e, s, sc["loss"], sc["triplet_count"],
-                            sc["hard_count"], sc["struct_count"]))
-                    continue
-                aux = host_step(batch, lr, multimodal)
-                if aux is None:
-                    continue  # the facenet miner found no triplet
-                step_host += 1
-                scalars = {k: float(v) for k, v in aux.items()}
-                exp.log(step_host, {**scalars, "learning_rate": lr},
-                        _echo(cfg, epoch, step_host, scalars["loss"],
-                              scalars["triplet_count"],
-                              scalars["hard_count"],
-                              scalars["struct_count"]))
-            exp.flush_logs()
+            # epoch constants: dist_dict changes only at validation
+            consts.update(mm=float(epoch >= cfg.multimodal_epochs),
+                          cm=(margin_table(dist_dict, device)
+                              if device_mining else None))
+            step_host = exp.run_epoch(run, lr, step_host, epoch, echo)
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
@@ -550,7 +557,6 @@ def train(cfg: TrainConfig, hard_only: bool = False,
             exp.ckpt.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
-        stream.close()  # cancels the feed and loader threads
         exp.close()
     return TrainResult(model, optimizer, step_host, metrics, exp.result_dir)
 

@@ -236,7 +236,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step); the JAX trainer
     has no such restore."""
-    _check_supported(cfg)
+    _check_supported(cfg, no_cache="multimodal_model_weak")
     if cfg.multimodal_select not in SELECTORS:
         raise NotImplementedError(
             f"--multimodal_select {cfg.multimodal_select!r}; expected one "

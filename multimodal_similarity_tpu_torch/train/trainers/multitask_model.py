@@ -7,8 +7,8 @@ whose mined triplets drive both the triplet loss and a ``PairSim2``
 verification head with dropout: (anchor, positive) pairs labelled 1,
 (anchor, negative) pairs 0, a masked cross-entropy weighted by
 ``--lambda_ver``.  The feed, validation and checkpoint are
-``pddm_model``'s (parameter groups ``encoder`` and ``ver``).  No CUDA
-kernel of ``csrc/`` is on this path.
+``pddm_model``'s (parameter groups ``encoder`` and ``ver``), and so is
+--device_cache.  No CUDA kernel of ``csrc/`` is on this path.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.multitask_model --DATA_ROOT <dir> --network convrtsn --lambda_ver 0.1 ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -25,6 +25,8 @@ from torch import nn
 
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
+from multimodal_similarity_tpu_torch.data.device_feed import (
+    dequant_features, take_features)
 from multimodal_similarity_tpu_torch.models import PairSim2
 from multimodal_similarity_tpu_torch.ops.losses import triplet_loss_masked
 from multimodal_similarity_tpu_torch.ops.mining import mine_semihard_triplets
@@ -36,7 +38,7 @@ from multimodal_similarity_tpu_torch.train.steps import (
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
 from multimodal_similarity_tpu_torch.train.trainers._loop import (
-    retrieval_validation, run_budget_trainer)
+    cache_feed, retrieval_validation, run_budget_trainer)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 from multimodal_similarity_tpu_torch.train.trainers.pddm_model import (
@@ -57,12 +59,14 @@ def verification_loss(logits: torch.Tensor, labels: torch.Tensor,
 def make_multitask_step(model: nn.Module, optimizer, cfg: TrainConfig,
                         generator: Optional[torch.Generator]) -> Callable:
     """step(events, labels, mask, learning_rate) -> device scalars;
-    ``generator`` (on the device) drives the mining draws."""
+    ``events`` dense or the int8 cache's {"q", "scale"}; ``generator`` (on
+    the device) drives the mining draws."""
     embed = make_embed_fn(model.encoder, cfg.normalized)
 
-    def step(events: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+    def step(events, labels: torch.Tensor, mask: torch.Tensor,
              learning_rate: float):
-        dists = masked_self_distance(embed(events), mask, cfg.metric)
+        dists = masked_self_distance(embed(dequant_features(events)), mask,
+                                     cfg.metric)
         mined = mine_semihard_triplets(
             dists, labels, generator, cfg.triplet_per_batch,
             alpha=cfg.alpha, num_negative=cfg.num_negative, valid=mask)
@@ -70,7 +74,8 @@ def make_multitask_step(model: nn.Module, optimizer, cfg: TrainConfig,
 
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        emb = model.encoder(events[tri_idx])
+        emb = model.encoder(dequant_features(take_features(events,
+                                                           tri_idx)))
         if cfg.normalized:
             emb = l2_normalize(emb)
         t = mined.anchor.shape[0]
@@ -120,7 +125,9 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
         lambda b, epoch, lr: step(b["events"], b["labels"], b["mask"], lr),
         device, step_host,
         retrieval_validation(model.encoder, cfg, exp, device),
-        echo_keys=("ver_acc",))
+        echo_keys=("ver_acc",),
+        cached=cache_feed(exp, cfg, lambda ev, lab, m, lr: step(
+            ev[0], lab, m, lr), device))
 
 
 def main(argv=None):

@@ -12,7 +12,9 @@ the triplet loss (``pddm_CUB.pddm_update``).  Per-epoch leave-one-out
 validation adds the PDDM-ranking mAP (``val_mAP_PDDM``); the checkpoint
 keeps the parameter groups ``encoder`` and ``pddm``.  --bf16_features
 ships f32, as the JAX trainer does outside its device cache;
---int8_features raises.  No CUDA kernel of ``csrc/`` is on this path.
+--int8_features raises.  --device_cache gathers each batch from the int8
+feature cache inside a fused step (_loop.py ``cache_feed``).  No CUDA
+kernel of ``csrc/`` is on this path.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.pddm_model --DATA_ROOT <dir> --feat sensors --network rtsn --n_input 8 --emb_dim 32 ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -30,6 +32,8 @@ from torch import nn
 
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
+from multimodal_similarity_tpu_torch.data.device_feed import (
+    dequant_features, take_features)
 from multimodal_similarity_tpu_torch.eval.metrics import average_precision
 from multimodal_similarity_tpu_torch.models import (
     PDDM, build_encoder, score_all_pairs_sym)
@@ -41,7 +45,7 @@ from multimodal_similarity_tpu_torch.train.steps import (
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
 from multimodal_similarity_tpu_torch.train.trainers._loop import (
-    retrieval_validation, run_budget_trainer)
+    cache_feed, retrieval_validation, run_budget_trainer)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 from multimodal_similarity_tpu_torch.train.trainers.pddm_CUB import (
@@ -74,13 +78,14 @@ def make_pddm_step(model: nn.Module, optimizer, cfg: TrainConfig,
                    generator: Optional[torch.Generator]) -> Callable:
     """step(events, labels, mask, learning_rate) -> device scalars:
     semi-hard triplets mined on the PDDM dissimilarity of the budget's
-    eval-mode embeddings, then ``pddm_update``.  ``generator`` (on the
-    device) drives the mining draws."""
+    eval-mode embeddings, then ``pddm_update``.  ``events`` dense or the
+    int8 cache's {"q", "scale"}; ``generator`` (on the device) drives the
+    mining draws."""
     embed = make_embed_fn(model.encoder, cfg.normalized)
 
-    def step(events: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+    def step(events, labels: torch.Tensor, mask: torch.Tensor,
              learning_rate: float):
-        emb = embed(events)
+        emb = embed(dequant_features(events))
         with torch.no_grad():
             dmat = 1.0 - score_all_pairs_sym(model.pddm.score, emb,
                                              block=min(128, emb.shape[0]))
@@ -90,8 +95,9 @@ def make_pddm_step(model: nn.Module, optimizer, cfg: TrainConfig,
             dmat, labels, generator, cfg.triplet_per_batch,
             alpha=cfg.alpha, num_negative=cfg.num_negative, valid=mask)
         tri_idx = torch.cat([mined.anchor, mined.positive, mined.negative])
-        aux = pddm_update(model, optimizer, cfg, events[tri_idx], mined,
-                          learning_rate)
+        aux = pddm_update(model, optimizer, cfg,
+                          dequant_features(take_features(events, tri_idx)),
+                          mined, learning_rate)
         aux["active_count"] = mined.active_count
         return aux
 
@@ -155,7 +161,9 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
         device, step_host,
         retrieval_validation(model.encoder, cfg, exp, device,
                              extra=pddm_map),
-        echo_keys=("pddm_loss", "triplet_num"))
+        echo_keys=("pddm_loss", "triplet_num"),
+        cached=cache_feed(exp, cfg, lambda ev, lab, m, lr: step(
+            ev[0], lab, m, lr), device))
 
 
 def main(argv=None):

@@ -10,9 +10,10 @@ reconstruction error (``val_mse``) and saves a checkpoint, whose
 ``Seq2seqTSN`` the clustering step embeds with.
 
 Streamed: the loader's batches go up on the feed thread
-(data/device_feed.py) through ``run_budget_trainer``.  Single device;
-``--device_cache`` raises (ROADMAP slice 8).  No CUDA kernel of ``csrc/``
-is on this path.
+(data/device_feed.py) through ``run_budget_trainer``; with
+``--device_cache`` a fused step gathers them from the int8 feature cache
+(_loop.py ``cache_feed``).  Single device.  No CUDA kernel of ``csrc/`` is
+on this path.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.unimodal_pretrain_sae --DATA_ROOT <dir> --feat sensors --n_input 8 --emb_dim 128 ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -29,6 +30,7 @@ import torch
 
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
+from multimodal_similarity_tpu_torch.data.device_feed import dequant_features
 from multimodal_similarity_tpu_torch.models import SAE, Seq2seqTSN
 from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
 from multimodal_similarity_tpu_torch.train.state import (
@@ -36,7 +38,7 @@ from multimodal_similarity_tpu_torch.train.state import (
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
 from multimodal_similarity_tpu_torch.train.trainers._loop import (
-    run_budget_trainer)
+    cache_feed, run_budget_trainer)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 
@@ -70,12 +72,13 @@ def make_reconstruction_step(model, optimizer, cfg: TrainConfig,
                              mode: str):
     """step(events, mask, learning_rate) -> device scalars: the train-mode
     reconstruction, each row's mean squared error averaged over the rows
-    whose ``mask`` is 1 (+ L2), and one optimizer step."""
+    whose ``mask`` is 1 (+ L2), and one optimizer step.  ``events`` dense
+    or the int8 cache's {"q", "scale"}."""
 
     def step(events, mask, learning_rate: float):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        x = _inputs(events, mode)
+        x = _inputs(dequant_features(events), mode)
         _, recon = model(x)
         sq = ((x - recon) ** 2).reshape(x.shape[0], -1).mean(dim=1)
         mse = (sq * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -131,7 +134,9 @@ def train(cfg: TrainConfig, mode: str = "seq2seq",
         device, step_host,
         lambda: {"val_mse": reconstruction_mse(model, exp.val_feats, mode,
                                                device)},
-        device_keys=("events", "mask"), echo_keys=("mse",))
+        device_keys=("events", "mask"), echo_keys=("mse",),
+        cached=cache_feed(exp, cfg, lambda ev, lab, m, lr: step(ev[0], m, lr),
+                          device))
 
 
 def main(argv=None):

@@ -120,9 +120,9 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 def test_bad_options_and_missing_gpu_raise(tmp_path, monkeypatch):
-    """An unknown miner and int8 with a host miner raise before any data is
-    read, the flags of a later slice name it, and the default device raises
-    when no card is visible."""
+    """An unknown miner, int8 with a host miner and --device_cache with a
+    host miner raise before any data is read, and the default device
+    raises when no card is visible."""
     cfg = _cfg(TrainConfig, DATA_ROOT=str(tmp_path))
     with pytest.raises(NotImplementedError, match="triplet_select"):
         base_model.train(_cfg(TrainConfig, DATA_ROOT=str(tmp_path),
@@ -130,9 +130,11 @@ def test_bad_options_and_missing_gpu_raise(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="int8_features requires"):
         base_model.train(_cfg(TrainConfig, DATA_ROOT=str(tmp_path),
                               int8_features=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(ValueError,
+                       match="device_cache requires --triplet_select facenet"):
         base_model.train(_cfg(TrainConfig, DATA_ROOT=str(tmp_path),
-                              device_cache=True), device="cpu")
+                              triplet_select="random", device_cache=True),
+                         device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         base_model.train(cfg)

@@ -324,10 +324,11 @@ def test_cli_runs_on_cpu(tmp_path, name):
 
 @pytest.mark.parametrize("name", list(CLIS))
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
-    """--device_cache and the other slice-8 flags raise
-    NotImplementedError naming slice 8, --int8_features raises ValueError,
-    and the default device and ``--device cuda`` raise when no card is
-    visible."""
+    """The slice-8 flags raise NotImplementedError naming slice 8;
+    --device_cache raises D5's ValueError on the classifier (no cached
+    feed) and the reference's on cross_prediction under --bf16_features
+    (the cache stores int8); --int8_features raises ValueError, and the
+    default device and ``--device cuda`` raise when no card is visible."""
     module, network, modalities, _ = CLIS[name]
     root = _data(tmp_path, modalities)
 
@@ -336,11 +337,14 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
                     feat=",".join(modalities), **dict(CONV, network=network),
                     **kw)
 
-    for flags in (dict(device_cache=True), dict(multihost=True),
-                  dict(device_cache=True, steps_per_dispatch=2),
-                  dict(profile_dir="p")):
+    for flags in (dict(multihost=True), dict(profile_dir="p")):
         with pytest.raises(NotImplementedError, match="slice 8"):
             module.train(cfg(**flags), device="cpu")
+    with pytest.raises(ValueError, match=(
+            "excludes --bf16_features" if name == "cross_prediction"
+            else f"{name} has no cached feed")):
+        module.train(cfg(device_cache=True, steps_per_dispatch=2,
+                         bf16_features=True), device="cpu")
     with pytest.raises(ValueError, match="int8_features is not supported"):
         module.train(cfg(int8_features=True), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -582,23 +582,32 @@ def test_cli_runs_on_cpu(tmp_path, name):
 
 
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch):
-    """The slice-8 flags raise NotImplementedError naming slice 8,
-    --int8_features without --device_mining raises
-    ValueError on the flagship and on the weak trainer, and the default
-    device raises when no card is visible."""
+    """The multi-process flags raise NotImplementedError naming slice 8;
+    --device_cache without --device_mining, or with --bf16_features, and
+    --int8_features without --device_mining raise ValueError on the
+    flagship, --device_cache (D5) and --int8_features on the weak trainer;
+    the default device raises when no card is visible."""
     root = _data(tmp_path)
 
     def cfg(**kw):
         return _cfg(TrainConfig, DATA_ROOT=root, sess_per_batch=1,
                     feat="resnet,sensors,segment", **CONV, **kw)
 
-    for flags in (dict(device_cache=True), dict(multihost=True),
-                  dict(model_parallel=2),
-                  dict(device_cache=True, steps_per_dispatch=2)):
+    for flags in (dict(multihost=True), dict(model_parallel=2)):
         for device_mining in (False, True):
             with pytest.raises(NotImplementedError, match="slice 8"):
                 multimodal_model.train(cfg(**flags), device="cpu",
                                        device_mining=device_mining)
+    with pytest.raises(ValueError, match="device_cache requires "
+                       "--device_mining"):
+        multimodal_model.train(cfg(device_cache=True, steps_per_dispatch=2),
+                               device="cpu")
+    with pytest.raises(ValueError, match="excludes --bf16_features"):
+        multimodal_model.train(cfg(device_cache=True, bf16_features=True),
+                               device="cpu", device_mining=True)
+    with pytest.raises(ValueError, match="multimodal_model_weak has no "
+                       "cached feed"):
+        multimodal_model_weak.train(cfg(device_cache=True), device="cpu")
     with pytest.raises(ValueError, match="int8_features requires"):
         multimodal_model.train(cfg(int8_features=True), device="cpu")
     with pytest.raises(ValueError, match="int8_features is not supported"):

@@ -334,7 +334,8 @@ def test_cli_runs_on_cpu(tmp_path, name):
 @pytest.mark.parametrize("name", list(CLIS))
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
     """The slice-8 flags raise NotImplementedError naming slice 8,
-    --int8_features raises ValueError, and the default device and
+    --device_cache raises D5's ValueError (the JAX trainer has no cached
+    feed), --int8_features raises ValueError, and the default device and
     ``--device cuda`` raise when no card is visible."""
     module, feats, _ = CLIS[name]
     root = _data(tmp_path)
@@ -343,10 +344,12 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
         return _cfg(TrainConfig, DATA_ROOT=root, sess_per_batch=1,
                     feat=feats, **CONV, **kw)
 
-    for flags in (dict(device_cache=True), dict(multihost=True),
+    for flags in (dict(multihost=True),
                   dict(model_parallel=2), dict(watchdog_secs=1.0)):
         with pytest.raises(NotImplementedError, match="slice 8"):
             module.train(cfg(**flags), device="cpu")
+    with pytest.raises(ValueError, match=f"{name} has no cached feed"):
+        module.train(cfg(device_cache=True), device="cpu")
     with pytest.raises(ValueError, match="int8_features is not supported"):
         module.train(cfg(int8_features=True), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -270,9 +270,11 @@ def test_cli_runs_on_cpu(tmp_path, name):
 
 @pytest.mark.parametrize("name", list(TRAINERS))
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
-    """--int8_features raises ValueError (the pair trainers feed f32),
-    --device_cache NotImplementedError naming its slice, and the default
-    device raises when no card is visible."""
+    """--int8_features raises ValueError (the pair trainers feed f32);
+    --device_cache raises D5's ValueError on ``pairsim_model`` (no cached
+    feed) and the reference's on the others under --bf16_features (the
+    cache stores int8); the default device raises when no card is
+    visible."""
     pmod, width = TRAINERS[name][1], TRAINERS[name][2]
     root = _data(tmp_path)
 
@@ -282,8 +284,10 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
 
     with pytest.raises(ValueError, match="int8_features is not supported"):
         pmod.train(cfg(int8_features=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        pmod.train(cfg(device_cache=True), device="cpu")
+    with pytest.raises(ValueError, match=(
+            "pairsim_model has no cached feed" if name == "pairsim_model"
+            else "excludes --bf16_features")):
+        pmod.train(cfg(device_cache=True, bf16_features=True), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmod.train(cfg())

@@ -467,15 +467,19 @@ def test_clis_run_the_chain_on_cpu(sensors_root, tmp_path):
 
 def test_options_and_missing_gpu_raise(sensors_root, tmp_path,
                                        monkeypatch):
-    """The slice-8 flags raise NotImplementedError naming slice 8
-    (``--watchdog_secs`` on ``base_model_tf``, ``--device_cache`` on the
-    autoencoder trainer); the default device raises when no card is
+    """``--watchdog_secs`` raises NotImplementedError naming slice 8 on
+    ``base_model_tf``; ``--device_cache`` raises D5's ValueError there and
+    the reference's on the autoencoder trainer under ``--bf16_features``
+    (the cache stores int8); the default device raises when no card is
     visible; ``base_model_tf`` without records raises."""
     cfg = _cfg(TrainConfig, **dict(SENSORS, DATA_ROOT=sensors_root))
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(ValueError, match="excludes --bf16_features"):
         unimodal_pretrain_sae.train(_cfg(TrainConfig, **dict(
-            SENSORS, DATA_ROOT=sensors_root, device_cache=True)),
-            device="cpu")
+            SENSORS, DATA_ROOT=sensors_root, device_cache=True,
+            bf16_features=True)), device="cpu")
+    with pytest.raises(ValueError, match="base_model_tf has no cached feed"):
+        base_model_tf.train(_cfg(TrainConfig, DATA_ROOT=sensors_root,
+                                 device_cache=True), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 8"):
         base_model_tf.train(_cfg(TrainConfig, DATA_ROOT=sensors_root,
                                  watchdog_secs=5.0), device="cpu")

@@ -191,7 +191,7 @@ def test_checkpoint_round_trip_and_pruning(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,slice_no", [
-    ("device_cache", True, 8), ("multihost", True, 8),
+    ("multihost", True, 8),
     ("model_parallel", 2, 8), ("profile_dir", "p", 8),
     ("watchdog_secs", 5.0, 8)])
 def test_unported_flags_raise(tmp_path, flag, value, slice_no):
