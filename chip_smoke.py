@@ -195,7 +195,23 @@ Phases, each fatal on failure (no error is caught):
    target) and ``unimodal_pretrain_sae`` with --device_cache, with no
    ``csrc/`` launch; then removes the full-budget directory and prints
    each phase's native gathers and deferrals (phases 8-15 and 17 must
-   have gathered natively).
+   have gathered natively);
+19. run control and the process group (``run_control_phase``):
+   ``base_model_batchhard --profile_dir --profile_steps 3`` for one epoch
+   on the 40-session directory at base_model's width (the trace holds one
+   ``batch_hard_tri_tc`` a profiled step; its five longest device
+   operations, and the step interval inside the window and after it);
+   ``--watchdog_secs 2`` with the second step stalled 4 s (thread dump,
+   stop, checkpoint of step 2, a ``--model_path`` rerun from step 3); a
+   SIGTERM to ``python -m multimodal_similarity_tpu_torch
+   train.base_model_batchhard --device cuda`` after two logged steps (rc
+   0, the preemption line, the checkpoint of that step); then a one-rank
+   NCCL group (``init_method=file://``): the batch-hard ring's stats,
+   winners and loss gradient against f32 K1 and the lifted ring's against
+   K4 and K5 at N=1024, d=256, each ring's forward plus backward time
+   beside the kernel path's, ``make_dp_triplet_step`` against the fused
+   semi-hard step at base_model's width (loss and parameters rtol 1e-5),
+   and ``sync_should_stop``'s all-reduce over NCCL.
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -4540,6 +4556,403 @@ def cache_phase(root, full_root):
     print(f"[cache] phase 18 {time.time() - t_phase:.1f} s", flush=True)
 
 
+# phase 19: run control and the process group on the card
+RC_PROFILE_STEPS = 3
+RC_WATCHDOG_SECS = 2.0
+RC_STALL_S = 4.0
+RC_RING_N, RC_RING_D = 1024, 256
+RC_DP_EVENTS, RC_DP_TRIPLETS = 1000, 200
+RC_RTOL = 1e-5
+
+
+def trace_device_ops(path):
+    """The device events of a Chrome trace: (name, category, µs)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e.get("cat", ""), float(e.get("dur", 0.0)))
+            for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def profile_run(root, steady_root):
+    """``base_model_batchhard --profile_dir --profile_steps 3`` for one
+    epoch on the 40-session directory at base_model's width: the trace
+    holds one K3 winner-tracking tile walk (``batch_hard_tri_tc``) a
+    profiled step; prints its five longest device operations and the step
+    interval inside the window beside the one after it."""
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_model_batchhard)
+    prof_dir = os.path.join(root, "profile")
+    cfg = full_width_cfg(steady_root, "rc_profile", max_epochs=1,
+                         profile_dir=prof_dir,
+                         profile_steps=RC_PROFILE_STEPS)
+    t0 = time.time()
+    res = base_model_batchhard.train(
+        cfg, result_dir=os.path.join(root, "rc_profile"))
+    wall = time.time() - t0
+    traces = sorted(os.listdir(prof_dir))
+    if len(traces) != 1:
+        fail(f"profile: {len(traces)} trace files in {prof_dir}")
+    ops = trace_device_ops(os.path.join(prof_dir, traces[0]))
+    k3 = [o for o in ops if "batch_hard_tri_tc" in o[0]]
+    print(f"[rc-profile] {res.step} steps in {wall:.1f} s; trace "
+          f"{traces[0]}: {len(ops)} device operations, "
+          f"{len(k3)} batch_hard_tri_tc launches", flush=True)
+    if len(k3) != RC_PROFILE_STEPS:
+        fail(f"profile: {len(k3)} batch_hard_tri_tc launches in the trace, "
+             f"want one for each of {RC_PROFILE_STEPS} profiled steps")
+    busy = sum(o[2] for o in ops)
+    for name, cat, dur in sorted(ops, key=lambda o: -o[2])[:5]:
+        print(f"[rc-profile] longest device op {dur / 1e3:.4f} ms "
+              f"({100 * dur / busy:.1f}% of the window's device time) "
+              f"{cat} {name[:110]}", flush=True)
+    recs = [json.loads(line) for line in
+            open(os.path.join(res.result_dir, "metrics.jsonl"))]
+    stamps = {r["step"]: r["time"] for r in recs if "loss" in r}
+    first = int(traces[0].split("steps")[1].split("-")[0])
+    last = first + RC_PROFILE_STEPS - 1
+    inside = [stamps[s] - stamps[s - 1] for s in range(first, last + 1)]
+    after = [stamps[s] - stamps[s - 1] for s in sorted(stamps)
+             if s > last + 1]
+    print(f"[rc-profile] step interval (host enqueue to enqueue, s) inside "
+          f"the window {json.dumps([round(x, 4) for x in inside])} mean "
+          f"{sum(inside) / len(inside):.4f}; after it "
+          f"{json.dumps([round(x, 4) for x in after])} mean "
+          f"{sum(after) / max(len(after), 1):.4f}; device busy "
+          f"{busy / 1e3:.3f} ms over the window", flush=True)
+
+
+def watchdog_run(root):
+    """``--watchdog_secs 2`` with the second step stalled past it (a
+    phase-local wrapper of the step sleeps): the thread dump is printed,
+    the stop requested, that exact step checkpointed and the run ends; a
+    rerun with ``--model_path`` restores that step and goes on from it."""
+    from multimodal_similarity_tpu_torch.models import build_encoder
+    from multimodal_similarity_tpu_torch.train.checkpoints import (
+        load_checkpoint)
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_model_batchhard)
+    real = base_model_batchhard.make_balanced_batch_step
+    calls = []
+
+    def stalled(*a, **k):
+        step = real(*a, **k)
+
+        def run(*sa, **sk):
+            out = step(*sa, **sk)
+            calls.append(1)
+            if len(calls) == 2:
+                import torch
+                torch.cuda.synchronize()
+                time.sleep(RC_STALL_S)
+            return out
+        return run
+
+    cfg = full_width_cfg(root, "rc_watchdog", max_epochs=50,
+                         watchdog_secs=RC_WATCHDOG_SECS)
+    # the dump is written to file descriptor 2 (faulthandler), so the run's
+    # stderr goes to a file for the check, and is printed after
+    err_path = os.path.join(root, "rc_watchdog.stderr")
+    saved = os.dup(2)
+    base_model_batchhard.make_balanced_batch_step = stalled
+    try:
+        with open(err_path, "w") as err:
+            sys.stderr.flush()
+            os.dup2(err.fileno(), 2)
+            try:
+                res = base_model_batchhard.train(
+                    cfg, result_dir=os.path.join(root, "rc_watchdog"))
+            finally:
+                sys.stderr.flush()
+                os.dup2(saved, 2)
+    finally:
+        os.close(saved)
+        base_model_batchhard.make_balanced_batch_step = real
+    with open(err_path) as f:
+        dump = f.read()
+    sys.stderr.write(dump)
+    if "watchdog: no step completed" not in dump or \
+            "thread dump" not in dump or "File" not in dump:
+        fail("watchdog: no thread dump was printed")
+    if res.step != 2:
+        fail(f"watchdog: the run stopped at step {res.step}, not at the "
+             "stalled step 2")
+    ckpt = os.path.join(res.result_dir, "rc_watchdog.ckpt-2")
+    model = build_encoder(cfg.network, num_seg=cfg.num_seg,
+                          emb_dim=cfg.emb_dim, n_input=cfg.n_input,
+                          n_h=cfg.n_h, n_w=cfg.n_w, n_C=cfg.n_C).cuda()
+    if load_checkpoint(ckpt, model) != 2:
+        fail("watchdog: the checkpoint does not hold step 2")
+    resumed = base_model_batchhard.train(
+        full_width_cfg(root, "rc_resumed", max_epochs=2, model_path=ckpt),
+        result_dir=os.path.join(root, "rc_resumed"))
+    recs = [json.loads(line) for line in
+            open(os.path.join(resumed.result_dir, "metrics.jsonl"))]
+    first = min(r["step"] for r in recs if "loss" in r)
+    print(f"[rc-watchdog] stalled step 2 for {RC_STALL_S} s under a "
+          f"{RC_WATCHDOG_SECS} s deadline: thread dump printed, stopped and "
+          f"checkpointed at step {res.step}; the rerun with --model_path "
+          f"restored step 2 and logged steps {first}-{resumed.step}",
+          flush=True)
+    if first != 3:
+        fail(f"watchdog: the resumed run's first step is {first}, not 3")
+
+
+def sigterm_run(root):
+    """SIGTERM to ``python -m multimodal_similarity_tpu_torch
+    train.base_model_batchhard --device cuda`` once its metrics show two
+    steps: rc 0, the preemption line, and a checkpoint of that step."""
+    import glob
+    import re
+    import signal
+    from multimodal_similarity_tpu_torch.models import build_encoder
+    from multimodal_similarity_tpu_torch.train.checkpoints import (
+        load_checkpoint)
+    cfg = full_width_cfg(root, "rc_sigterm")
+    args = [sys.executable, "-m", "multimodal_similarity_tpu_torch",
+            "train.base_model_batchhard", "--device", "cuda",
+            "--DATA_ROOT", root, "--name", "rc_sigterm",
+            "--max_epochs", "100000", "--log_flush_every", "1",
+            "--silent_mode"]
+    for key in ("feat", "network", "n_input", "n_h", "n_w", "n_C",
+                "emb_dim", "num_seg", "batch_size", "event_per_batch",
+                "sess_per_batch", "label_num", "static_epochs",
+                "learning_rate", "keep_prob", "optimizer", "alpha"):
+        args += [f"--{key}", str(getattr(cfg, key))]
+    t0 = time.time()
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=HERE)
+    try:
+        pattern = os.path.join(root, "results", "rc_sigterm_*",
+                               "metrics.jsonl")
+        while True:
+            files = glob.glob(pattern)
+            if files and sum('"loss"' in line for line in open(files[0])) \
+                    >= 2:
+                break
+            if proc.poll() is not None:
+                fail("sigterm: the trainer exited before two steps:\n"
+                     + proc.communicate()[0])
+            if time.time() - t0 > 300:
+                fail("sigterm: no two steps logged in 300 s")
+            time.sleep(0.05)
+        t_sig = time.time()
+        os.kill(proc.pid, signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    m = re.search(r"preemption signal: checkpointed at step (\d+)", out)
+    if proc.returncode != 0 or not m:
+        fail(f"sigterm: rc {proc.returncode}, no preemption line:\n{out}")
+    step = int(m.group(1))
+    (ckpt,) = glob.glob(os.path.join(root, "results", "rc_sigterm_*",
+                                     f"rc_sigterm.ckpt-{step}"))
+    model = build_encoder(cfg.network, num_seg=cfg.num_seg,
+                          emb_dim=cfg.emb_dim, n_input=cfg.n_input,
+                          n_h=cfg.n_h, n_w=cfg.n_w, n_C=cfg.n_C).cuda()
+    if load_checkpoint(ckpt, model) != step:
+        fail(f"sigterm: the checkpoint does not hold step {step}")
+    print(f"[rc-sigterm] signalled after {t_sig - t0:.1f} s; exited rc 0 "
+          f"{time.time() - t_sig:.2f} s later: 'preemption signal: "
+          f"checkpointed at step {step}', the checkpoint holds step {step}",
+          flush=True)
+
+
+def rel_close(tag, got, want, rtol=RC_RTOL):
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= rtol * max(scale,
+                                                                 1e-30)):
+        fail(f"{tag}: max_abs_err {err} > {rtol} x {scale}")
+    return err / max(scale, 1e-30)
+
+
+def ring_checks(mesh, gen):
+    """The rings at world 1 over NCCL against the f32 kernels on the same
+    card inputs (N=1024, d=256, bench.py's shape): batch-hard stats and the
+    ring loss's gradient against K1 (``batch_hard_stats_kernel``; fp, cn
+    and the gradient rtol 1e-5, nc equal, winners equal on exact inputs),
+    the lifted ring's forward and gradient against K4 and K5 at
+    ``check_lifted``'s tolerances; each ring's forward plus backward time
+    beside the kernel path's (CUDA events)."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        batch_hard_fused, lifted_loss_fused)
+    from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
+        prep_operands, stats_kernel)
+    from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
+        lifted_bwd_kernel, lifted_fwd_kernel)
+    from multimodal_similarity_tpu_torch.parallel import (
+        make_ring_batch_hard_loss, make_ring_lifted_loss,
+        make_ring_lifted_stats_grad)
+    from multimodal_similarity_tpu_torch.parallel.ring_mining import (
+        _ring_stats)
+    n, d = RC_RING_N, RC_RING_D
+    for kind in ("int", "float"):
+        emb, labels, _ = make_case(n, d, kind, gen, n_classes=64)
+        ones = torch.ones(n, device=emb.device)
+        fp, cn, nc, fpi, cni = stats_kernel(
+            prep_operands(emb, labels, ones, "f32"), True)
+        rfp, rfpi, rcn, rcni, rnc = _ring_stats(mesh, emb, labels, True)
+        torch.cuda.synchronize()
+        e1 = rel_close(f"ring {kind} fp", rfp, fp)
+        e2 = rel_close(f"ring {kind} cn", rcn, cn)
+        if not torch.equal(rnc, nc):
+            fail(f"ring {kind}: negative counts differ from K1")
+        wrong = int((rfpi != fpi.long()).sum() + (rcni != cni.long()).sum())
+        if kind == "int" and wrong:
+            fail(f"ring int: {wrong} winners differ from K1 on exact inputs")
+        x = emb.clone().requires_grad_(True)
+        batch_hard_fused(x, labels, "soft", precision="f32",
+                         algo="row")[0].backward()
+        y = emb.clone().requires_grad_(True)
+        make_ring_batch_hard_loss(mesh, "soft")(y, labels)[0].backward()
+        e3 = rel_close(f"ring {kind} gradient", y.grad, x.grad)
+        print(f"[rc-ring] batch-hard N={n} d={d} {kind}: fp rel {e1:.3g}, "
+              f"cn rel {e2:.3g} (rtol {RC_RTOL}), nc equal, "
+              f"{wrong} winner mismatches, loss gradient rel {e3:.3g}",
+              flush=True)
+    emb, labels, _ = make_case(n, d, "float", gen, n_classes=64)
+    valid = (torch.rand(n, generator=gen) >= 0.1).float().cuda()
+    ops = prep_operands(emb, labels, valid, "f32")
+    tol = 1e-4 * max(1.0, d / 128)
+    fp, cn, nc = lifted_fwd_kernel(ops, MARGIN)
+    g_fp = torch.rand(n, device=emb.device) - 0.3
+    g_cn = torch.rand(n, device=emb.device) - 0.3
+    g_k = lifted_bwd_kernel(ops, fp, cn, g_fp, g_cn, MARGIN)
+    y = emb.clone().requires_grad_(True)
+    rfp, rcn, rnc = make_ring_lifted_stats_grad(mesh, MARGIN)(y, labels,
+                                                              valid)
+    ((rfp * g_fp).sum() + (rcn * g_cn).sum()).backward()
+    rfp, rcn = rfp.detach(), rcn.detach()
+    torch.cuda.synchronize()
+    err = max(float((rfp - fp).abs().max()), float((rcn - cn).abs().max()))
+    gerr = float((y.grad - g_k).abs().max())
+    gtol = tol * max(float(g_k.abs().max()), 1.0)
+    if not torch.equal(rnc, nc) or err > tol or gerr > gtol:
+        fail(f"lifted ring vs K4/K5: stats err {err} (tol {tol}), gradient "
+             f"err {gerr} (tol {gtol}), nc equal {torch.equal(rnc, nc)}")
+    print(f"[rc-ring] lifted N={n} d={d} f32, 10% invalid: stats vs K4 "
+          f"max_abs_err {err:.3g} (tol {tol:.3g}), gradient vs K5 "
+          f"{gerr:.3g} (tol {gtol:.3g}), nc equal", flush=True)
+
+    def fwd_bwd(loss_fn):
+        def run():
+            x = emb.clone().requires_grad_(True)
+            loss_fn(x)[0].backward()
+        return run
+
+    ring_bh = make_ring_batch_hard_loss(mesh, "soft")
+    ring_lt = make_ring_lifted_loss(mesh, MARGIN)
+    times = {
+        "batch-hard ring": call_ms(fwd_bwd(lambda x: ring_bh(x, labels))),
+        "batch-hard K1 f32 (row)": call_ms(fwd_bwd(
+            lambda x: batch_hard_fused(x, labels, "soft", precision="f32",
+                                       algo="row"))),
+        "lifted ring": call_ms(fwd_bwd(lambda x: ring_lt(x, labels))),
+        "lifted K4+K5 f32": call_ms(fwd_bwd(
+            lambda x: lifted_loss_fused(x, labels, MARGIN,
+                                        precision="f32"))),
+    }
+    rounded = {k: round(v, 4) for k, v in times.items()}
+    print(f"[rc-ring] forward + backward ms at N={n} d={d} (CUDA events, "
+          f"world 1): {json.dumps(rounded)}", flush=True)
+
+
+def dp_check(mesh, root):
+    """``make_dp_triplet_step`` at world 1 against the single-device fused
+    semi-hard step at base_model's width (``full_width_cfg``: ConvRTSN on
+    8x8x1536 maps, emb_dim 128, keep_prob 0.5; 1000 events, 200 triplets,
+    5 negatives) from the same parameters and the same mining and dropout
+    draws: loss and every updated parameter within rtol 1e-5."""
+    import torch
+    from multimodal_similarity_tpu_torch.models import build_encoder
+    from multimodal_similarity_tpu_torch.parallel import make_dp_triplet_step
+    from multimodal_similarity_tpu_torch.train.state import build_optimizer
+    from multimodal_similarity_tpu_torch.train.steps import (
+        make_triplet_train_step)
+    cfg = full_width_cfg(root, "rc_dp")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    events = torch.randn((RC_DP_EVENTS, cfg.num_seg, cfg.n_h, cfg.n_w,
+                          cfg.n_input), device="cuda", generator=gen)
+    labels = torch.randint(1, 12, (RC_DP_EVENTS,), device="cuda",
+                           generator=gen)
+    mask = (torch.arange(RC_DP_EVENTS, device="cuda")
+            < RC_DP_EVENTS - 30).float()
+    runs = {}
+    for tag in ("dp", "single"):
+        model = build_encoder(
+            cfg.network, num_seg=cfg.num_seg, emb_dim=cfg.emb_dim,
+            n_input=cfg.n_input, n_h=cfg.n_h, n_w=cfg.n_w, n_C=cfg.n_C,
+            keep_prob=cfg.keep_prob,
+            generator=torch.Generator().manual_seed(7),
+            dropout_generator=torch.Generator(device="cuda").manual_seed(8)
+        ).cuda()
+        opt = build_optimizer("ADAM", model, cfg.learning_rate)
+        kw = dict(triplet_per_batch=RC_DP_TRIPLETS, alpha=0.2,
+                  num_negative=5, lambda_l2=1e-3)
+        mine = torch.Generator(device="cuda").manual_seed(9)
+        step = (make_dp_triplet_step(model, opt, mesh, generator=mine, **kw)
+                if tag == "dp" else
+                make_triplet_train_step(model, opt, generator=mine, **kw))
+        aux = step(events, labels, mask, cfg.learning_rate)
+        runs[tag] = (aux, dict(model.named_parameters()))
+    (aux_dp, p_dp), (aux_one, p_one) = runs["dp"], runs["single"]
+    rel_close("dp step loss", aux_dp["loss"][None], aux_one["loss"][None])
+    worst = max(rel_close(f"dp step {name}", p_dp[name].detach(),
+                          p.detach()) for name, p in p_one.items())
+    if float(aux_dp["triplet_num"]) != float(aux_one["triplet_num"]):
+        fail("dp step: the mined triplet counts differ")
+    print(f"[rc-dp] make_dp_triplet_step (world 1, NCCL) vs the fused "
+          f"semi-hard step: loss {float(aux_dp['loss']):.6f} vs "
+          f"{float(aux_one['loss']):.6f}, {float(aux_dp['triplet_num']):.0f} "
+          f"triplets, worst parameter rel {worst:.3g} (rtol {RC_RTOL})",
+          flush=True)
+
+
+def run_control_phase(root, steady_root):
+    """Phase 19: ``--profile_dir``, ``--watchdog_secs`` and SIGTERM on the
+    batch-hard trainer, then a one-rank NCCL process group: the rings and
+    the data-parallel step against the kernels and the single-device step,
+    and the stop decision's all-reduce."""
+    import torch
+    import torch.distributed as dist
+    from multimodal_similarity_tpu_torch.parallel import create_mesh
+    from multimodal_similarity_tpu_torch.utils import preemption
+    t0 = time.time()
+    profile_run(root, steady_root)
+    watchdog_run(root)
+    sigterm_run(root)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(root, 'rc_pg')}",
+        world_size=1, rank=0)
+    try:
+        mesh = create_mesh(1)
+        if mesh.device.type != "cuda":
+            fail(f"NCCL mesh on {mesh.device}")
+        ring_checks(mesh, torch.Generator().manual_seed(190))
+        dp_check(mesh, root)
+        guard = preemption.PreemptionGuard()
+        # a process count of 2 makes sync_should_stop run the collective,
+        # which it skips for a single process; the group itself is world 1
+        if preemption.any_process(False) or \
+                preemption.sync_should_stop(guard, 2, step=1, every=1):
+            fail("sync_should_stop: a stop no process asked for")
+        guard.request_stop()
+        if not preemption.sync_should_stop(guard, 2, step=1, every=1):
+            fail("sync_should_stop: the stop was not seen over NCCL")
+        print("[rc-nccl] sync_should_stop(every=1): all_reduce(MAX) of the "
+              "flag over the one-rank NCCL group, False then True",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"[rc] phase 19 took {time.time() - t0:.1f} s", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4622,6 +5035,7 @@ def main():
                 hal_ckpt)
         cache_phase(root, full_root)
         shutil.rmtree(full_root)
+        run_control_phase(root, steady_root)
     # every Honda loader of phases 8-15 and 17 draws TSN segments: each
     # must have taken the native gather
     print(f"[native] gathers and deferrals by phase {json.dumps(gathers)}",

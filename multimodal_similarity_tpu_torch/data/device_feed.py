@@ -134,6 +134,10 @@ class BatchPlacer:
         self.device = torch.device(device)
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"cannot feed device {self.device}")
+        if self.device.type == "cuda" and self.device.index is None:
+            # the caller's card: the feed thread's own current device is
+            # cuda:0, whatever the caller's is
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.device_keys = tuple(device_keys)
         self.bf16 = frozenset(bf16_keys)
         self.int8 = frozenset(int8_keys)
@@ -176,12 +180,14 @@ class BatchPlacer:
     def _slot(self):
         """The next ring slot, its buffers free for refilling."""
         if not self._ring:
-            self._stream = torch.cuda.Stream(device=self.device)
-            for _ in range(DEPTH + 1):
-                self._ring.append({
-                    "bufs": {k: self._alloc(s, pin=True)
-                             for k, s in self._layout.items()},
-                    "event": torch.cuda.Event()})
+            # on this thread, whose current device is not the caller's
+            with torch.cuda.device(self.device):
+                self._stream = torch.cuda.Stream(device=self.device)
+                for _ in range(DEPTH + 1):
+                    self._ring.append({
+                        "bufs": {k: self._alloc(s, pin=True)
+                                 for k, s in self._layout.items()},
+                        "event": torch.cuda.Event()})
         slot = self._ring[self._next]
         self._next = (self._next + 1) % len(self._ring)
         # the copy that last read these buffers must be done

@@ -12,7 +12,7 @@ package's format (the same files, byte for byte), so an index written by
 either package serves in the other.
 
 Both classes run on ``cuda`` unless the caller passes ``device="cpu"``.  A
-gallery sharded over several devices (``mesh=``) is slice 8 of the port.
+gallery sharded over several devices (``mesh=``) is slice 8c-ii of the port.
 """
 
 from __future__ import annotations
@@ -100,7 +100,7 @@ class RetrievalIndex:
                  int8_gallery: bool = False, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "a gallery sharded over a mesh is slice 8 of the port "
+                "a gallery sharded over a mesh is slice 8c-ii of the port "
                 "(parallel/sharded_eval.py); pass mesh=None")
         self.device = resolve_device(device)
         self.emb_dim = emb_dim

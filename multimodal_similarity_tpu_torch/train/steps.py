@@ -64,15 +64,20 @@ def make_embed_fn(model: nn.Module, normalized: bool = True) -> Callable:
 
 
 def embed_in_chunks(embed_fn: Callable, events, device: torch.device,
-                    chunk: int = 256) -> torch.Tensor:
+                    chunk: int = 256,
+                    beat: Optional[Callable[[], None]] = None
+                    ) -> torch.Tensor:
     """Embed a host array or a tensor ``chunk`` rows at a time; returns the
-    embeddings on ``device``."""
+    embeddings on ``device``.  ``beat`` (a watchdog heartbeat) is called
+    after each chunk."""
     out = []
     for start in range(0, events.shape[0], chunk):
         block = events[start:start + chunk]
         if isinstance(block, np.ndarray):
             block = torch.from_numpy(np.ascontiguousarray(block))
         out.append(embed_fn(block.to(device)))
+        if beat is not None:
+            beat()
     return torch.cat(out, dim=0)
 
 

@@ -30,14 +30,17 @@ def setup_experiment(cfg, timestamp: bool = True,
 
 
 def validate(embed_fn, val_feats, val_labels, device: torch.device,
-             loss_fn: Optional[Callable] = None, chunk: int = 256):
+             loss_fn: Optional[Callable] = None, chunk: int = 256,
+             beat: Optional[Callable[[], None]] = None):
     """Per-epoch validation: chunked eval-mode embedding on ``device``,
     leave-one-out retrieval metrics, and, given ``loss_fn``, the trainer's
     own objective ``loss_fn(emb, labels)`` over the whole validation set as
     ``val_loss`` (no gradient, so the batch-hard stats run without winner
-    tracking and the lifted stats run their forward alone).  Returns
-    (metrics, embeddings tensor)."""
-    emb = embed_in_chunks(embed_fn, val_feats, device, chunk=chunk)
+    tracking and the lifted stats run their forward alone).  ``beat`` (a
+    watchdog heartbeat) is called after each embedded chunk and once after
+    the metrics.  Returns (metrics, embeddings tensor)."""
+    emb = embed_in_chunks(embed_fn, val_feats, device, chunk=chunk,
+                          beat=beat)
     labels = np.asarray(val_labels).reshape(-1)
     mAP, mPrec, recalls = retrieval_metrics(emb, labels)
     metrics = {"val_mAP": mAP, "val_mPrec": mPrec,
@@ -46,6 +49,8 @@ def validate(embed_fn, val_feats, val_labels, device: torch.device,
         with torch.no_grad():
             metrics["val_loss"] = float(loss_fn(
                 emb, torch.from_numpy(labels.astype(np.int64)).to(device))[0])
+    if beat is not None:
+        beat()
     return metrics, emb
 
 

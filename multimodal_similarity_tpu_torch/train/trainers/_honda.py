@@ -1,12 +1,17 @@
 """Shared scaffolding for the Honda-track trainers: dataset preparation,
 the session loader, the validation preload, the result dir, logging and
-checkpointing, and the train feed: the loader's batches uploaded on the
-feed thread, or the device feature cache (``--device_cache``) with its
-epoch of fused cached steps.  One or more modalities a loader row; single
-process."""
+checkpointing, the train feed (the loader's batches uploaded on the feed
+thread, or the device feature cache (``--device_cache``) with its epoch of
+fused cached steps) and run control: the ``--profile_dir`` step-window
+trace, the SIGTERM guard with its checkpoint of the exact step, and the
+``--watchdog_secs`` hang watchdog.  One or more modalities a loader row.
+On a process mesh (parallel/mesh.py) process 0 owns the checkpoints, the
+projector files and the trace; the others log under ``<name>_proc<pid>``,
+and the stop decision is collective."""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import time
@@ -23,10 +28,13 @@ from multimodal_similarity_tpu_torch.data import (
 from multimodal_similarity_tpu_torch.data.device_cache import (
     DeviceFeatureCache, cache_budget_bytes, notice_window_shortfall)
 from multimodal_similarity_tpu_torch.data.device_feed import device_prefetch
+from multimodal_similarity_tpu_torch.parallel.multihost import (
+    host_local_sessions)
 from multimodal_similarity_tpu_torch.train.cached_steps import (
     dispatch_plan_window)
 from multimodal_similarity_tpu_torch.train.checkpoints import (
     CheckpointManager)
+from multimodal_similarity_tpu_torch.train.run_control import RunControl
 from multimodal_similarity_tpu_torch.train.trainer import setup_experiment
 from multimodal_similarity_tpu_torch.utils.logging import (
     DeferredStepLogs,
@@ -44,7 +52,9 @@ class HondaExperiment:
                  result_dir: Optional[str] = None,
                  limit_label_num: bool = True,
                  val_sessions: Optional[Sequence[str]] = None,
-                 supports_int8: bool = False):
+                 supports_int8: bool = False, mesh=None,
+                 session_shard: bool = False,
+                 loader_seed: Optional[int] = None):
         """``modalities``: the feature names a loader row holds (default
         the first of ``cfg.feat``); the loader's batches carry them as
         ``events``, ``events2``, ``events3``, and ``val_extra`` holds the
@@ -53,7 +63,18 @@ class HondaExperiment:
         are those ids either way); ``val_sessions``: validate on these in
         place of ``cfg.val_session``; ``supports_int8``: the trainer
         dequantizes --int8_features batches in its step (elsewhere the flag
-        raises)."""
+        raises).  ``mesh`` (a parallel.ProcessMesh) makes this process one
+        rank of a multi-process run; ``session_shard`` (``--multihost``)
+        then loads only this rank's sessions (``host_local_sessions``) with
+        the global lockstep batch count, each epoch truncated to it.
+        ``loader_seed`` seeds the loader (default ``cfg.seed``)."""
+        self._pid, self._pcount = ((mesh.rank, mesh.size) if mesh is not None
+                                   else (0, 1))
+        if self._pid > 0:
+            # per-process result scratch: process 0 owns the artifacts
+            cfg = dataclasses.replace(cfg, name=f"{cfg.name}_proc{self._pid}")
+            if result_dir is not None:
+                result_dir = f"{result_dir}_proc{self._pid}"
         self.cfg = cfg
         if cfg.int8_features and not supports_int8:
             raise ValueError(
@@ -79,17 +100,31 @@ class HondaExperiment:
         if limit_label_num:
             self.train_set = self.train_set[: cfg.label_num]
         self.labeled_sessions = set(cfg.train_session[: cfg.label_num])
-        self.batch_per_epoch = len(self.train_set) // cfg.sess_per_batch
-        if self.batch_per_epoch < 1:
-            raise ValueError(f"{len(self.train_set)} train sessions < "
-                             f"sess_per_batch={cfg.sess_per_batch}")
+        self.local_set = self.train_set
+        self.lockstep = None  # --multihost: every rank's batches an epoch
+        if session_shard and self._pcount > 1:
+            self.local_set = host_local_sessions(self.train_set, self._pid,
+                                                 self._pcount)
+            self.lockstep = ((len(self.train_set) // self._pcount)
+                             // cfg.sess_per_batch)
+        self.batch_per_epoch = (self.lockstep if self.lockstep is not None
+                                else len(self.local_set)
+                                // cfg.sess_per_batch)
+        # checked before the loader is built: an empty or short session
+        # shard fails with this message, not the loader's
+        if self.batch_per_epoch < 1 or not self.local_set:
+            raise ValueError(
+                f"{len(self.train_set)} train sessions < sess_per_batch="
+                f"{cfg.sess_per_batch}"
+                + (f" x {self._pcount} processes" if self.lockstep is not None
+                   else ""))
         self.loader = SessionBatchLoader(
-            self.train_set, sess_per_batch=cfg.sess_per_batch,
+            self.local_set, sess_per_batch=cfg.sess_per_batch,
             event_budget=self.event_budget,
             prepare_funcs=[functools.partial(tsn_prepare_input,
                                              cfg.num_seg)]
             * len(self.modalities),
-            seed=cfg.seed)
+            seed=cfg.seed if loader_seed is None else loader_seed)
 
         val_set = prepare(list(val_sessions or cfg.val_session))
         prep_test = functools.partial(tsn_prepare_input_test, cfg.num_seg)
@@ -107,6 +142,36 @@ class HondaExperiment:
         self.last_cached_aux = None  # the last cached step's scalars
         self._cached = self._plans = self._stream = None  # open_feed's
 
+        # the trace window, the SIGTERM guard and the watchdog; each
+        # logged step advances the window and beats the watchdog, and so
+        # does each validation chunk and cached session (control.beat_fn)
+        self.control = RunControl(cfg, self._pid, self._pcount)
+
+    @property
+    def is_chief(self) -> bool:
+        """True on process 0, which owns checkpoints and projector files."""
+        return self._pid == 0
+
+    def save(self, model, optimizer, step: int) -> None:
+        """The epoch checkpoint (process 0 only)."""
+        if self.is_chief:
+            self.ckpt.save(model, optimizer, step)
+
+    def preempted(self, step: int, model, optimizer) -> bool:
+        """At an epoch's end (after an early stop, or not): on a preemption
+        signal or a fired watchdog, checkpoint the exact ``step`` (process 0)
+        so ``--model_path`` resumes with no lost step, report, and tell the
+        caller to leave its loop.  The decision is collective on a mesh."""
+        self.flush_logs()  # the queued steps are part of the saved run
+        return self.control.preempted(
+            step, lambda s: self.ckpt.save(model, optimizer, s))
+
+    def loader_epoch(self):
+        """One epoch of loader batches; under ``session_shard`` truncated
+        to the lockstep count inside the loader (its RNG then draws for no
+        batch that is dropped)."""
+        return self.loader.epoch(max_batches=self.lockstep)
+
     # -- the device feature cache --------------------------------------------
 
     def build_cache(self, device, modality_modes=None, mesh=None
@@ -122,16 +187,17 @@ class HondaExperiment:
         if cfg.bf16_features:
             raise ValueError("--device_cache stores int8; it excludes "
                              "--bf16_features")
-        if mesh is not None:
+        if mesh is not None or self._pcount > 1:
             raise NotImplementedError(
                 "--device_cache on a mesh is not ported yet (ROADMAP slice "
-                "8c)")
+                "8c-ii)")
         cache = DeviceFeatureCache.build(
             self.train_set, n_seg=cfg.num_seg,
             sess_per_batch=cfg.sess_per_batch,
             event_budget=self.event_budget, seed=cfg.seed, device=device,
             budget_bytes=cache_budget_bytes(cfg.device_cache_gb),
-            modality_modes=modality_modes, verbose=not cfg.silent_mode)
+            modality_modes=modality_modes, beat=self.control.beat_fn,
+            verbose=not cfg.silent_mode)
         if cache is not None:
             self.batch_per_epoch = cache.batches_per_epoch
             if cfg.steps_per_dispatch > 1:
@@ -148,8 +214,8 @@ class HondaExperiment:
         ``--steps_per_dispatch`` windows issued back to back.  Scalars are
         logged deferred, ``train_time`` a window's host time a step;
         ``echo(epoch, step, scalars)`` gives a step's echo line.  The last
-        step's device scalars stay on ``last_cached_aux``.  Returns the new
-        step count."""
+        step's device scalars stay on ``last_cached_aux``.  The stop is
+        polled after each window.  Returns the new step count."""
         k = self.cfg.steps_per_dispatch
         if plans is None:
             plans = [p["packed"] for p in cache.epoch_plans()]
@@ -163,6 +229,8 @@ class HondaExperiment:
                 step_host += 1
                 self.last_cached_aux = aux
                 self._log_step(step_host, aux, dt, lr, epoch, echo)
+            if self.control.stop_requested(step_host):
+                break
         self.flush_logs()
         return step_host
 
@@ -187,8 +255,9 @@ class HondaExperiment:
         ``step(batch, lr)`` on each of ``batch_per_epoch`` streamed
         batches (a None batch or result is skipped).  Scalars are logged
         deferred, ``train_time`` the step's host enqueue interval (the
-        device time shows in the flush cadence).  Returns the new step
-        count."""
+        device time shows in the flush cadence).  The stop is polled after
+        every step; the caller checkpoints it with ``preempted``.  Returns
+        the new step count."""
         if self._cached is not None:
             return self.run_cached_epoch(
                 *self._cached, lr, step_host, epoch, echo,
@@ -202,6 +271,8 @@ class HondaExperiment:
                 continue
             step_host += 1
             self._log_step(step_host, aux, time.time() - t0, lr, epoch, echo)
+            if self.control.stop_requested(step_host):
+                break
         self.flush_logs()
         return step_host
 
@@ -213,6 +284,7 @@ class HondaExperiment:
 
     def log(self, step: int, scalars, echo: str = ""):
         self.flush_logs()  # keep the JSONL stream step-ordered
+        self.control.step_done(step)
         self.logger.log(step, {k: float(v) for k, v in scalars.items()})
         if echo and not self.cfg.silent_mode:
             print(echo)
@@ -220,8 +292,11 @@ class HondaExperiment:
     def log_deferred(self, step: int, device_scalars, host_scalars=None,
                      echo_fn=None):
         """``log`` without the per-step device-to-host readback: the step's
-        device scalars are queued and read every --log_flush_every steps."""
+        device scalars are queued and read every --log_flush_every steps.
+        The watchdog beats after the append, so after any readback it
+        made: a wedged device stalls that readback and the beats stop."""
         self._deferred.append(step, device_scalars, host_scalars, echo_fn)
+        self.control.step_done(step)
 
     def flush_logs(self):
         """Block until every queued step's scalars are logged."""
@@ -231,4 +306,5 @@ class HondaExperiment:
         if self._stream is not None:
             self._stream.close()  # cancels the feed and loader threads
         self._deferred.close()
+        self.control.close()
         self.logger.close()

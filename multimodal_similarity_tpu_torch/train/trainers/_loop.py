@@ -35,7 +35,7 @@ def loader_batches(exp: HondaExperiment):
     """Loader batches epoch after epoch, for the feed thread."""
     while True:
         produced = 0
-        for b in exp.loader.epoch():
+        for b in exp.loader_epoch():
             produced += 1
             yield b
         if not produced:
@@ -53,7 +53,8 @@ def retrieval_validation(encoder: nn.Module, cfg: TrainConfig,
     val_x = torch.from_numpy(exp.val_feats).to(device)
 
     def run():
-        metrics, _ = validate(embed_fn, val_x, exp.val_labels, device)
+        metrics, _ = validate(embed_fn, val_x, exp.val_labels, device,
+                              beat=exp.control.beat_fn)
         if extra is not None:
             metrics.update(extra(val_x))
         return metrics
@@ -109,6 +110,8 @@ def run_budget_trainer(cfg: TrainConfig, exp: HondaExperiment,
             step_host = exp.run_epoch(
                 lambda batch, lr_: run(batch, epoch, lr_), lr, step_host,
                 epoch, echo)
+            if exp.preempted(step_host, model, optimizer):
+                break
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
@@ -117,7 +120,7 @@ def run_budget_trainer(cfg: TrainConfig, exp: HondaExperiment,
             exp.log(step_host, metrics,
                     f"[{cfg.name}] epoch {epoch + 1} "
                     + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
-            exp.ckpt.save(model, optimizer, step_host)
+            exp.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
         exp.close()

@@ -20,8 +20,16 @@ step wrote, so it runs between steps on the main thread; under
 --bf16_features it embeds the f32 rows, uploaded beside the bf16 ones, as
 the JAX trainer embeds its f32 host batch.  Per-epoch
 leave-one-out validation (no validation loss, as in the JAX trainer), the
-embedding-projector files and a checkpoint.  Single device; no CUDA kernel
-of ``csrc/`` is on this path.
+embedding-projector files and a checkpoint.  No CUDA kernel of ``csrc/``
+is on this path.
+
+On more than one process (``facenet`` only, as in JAX) the step is the
+data-parallel one (parallel/data_parallel.py): under ``torchrun`` every
+rank draws the global budget batch and embeds its rows of it; with
+``--multihost`` (and the coordinator flags, or torchrun's environment)
+each rank loads its session shard (``host_local_sessions``) into its slice
+of the budget, for the global lockstep batch count.  Process 0 writes the
+checkpoints and the projector files (ROADMAP D6).
 
 With --device_cache (``facenet`` only, as in JAX) the train windows stay on
 the device as int8 (data/device_cache.py) and a step is one plan upload and
@@ -49,6 +57,10 @@ from multimodal_similarity_tpu_torch.models import build_encoder
 from multimodal_similarity_tpu_torch.ops.distances import cdist_rows
 from multimodal_similarity_tpu_torch.ops.mining import (
     select_triplets_facenet, select_triplets_random)
+from multimodal_similarity_tpu_torch.parallel.data_parallel import (
+    make_dp_triplet_step)
+from multimodal_similarity_tpu_torch.parallel.mesh import replicate
+from multimodal_similarity_tpu_torch.parallel.multihost import env_world_size
 from multimodal_similarity_tpu_torch.train.cached_steps import (
     make_cached_triplet_step)
 from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
@@ -62,7 +74,7 @@ from multimodal_similarity_tpu_torch.train.trainer import (
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
-    import TrainResult, _check_supported
+    import TrainResult, _check_supported, process_mesh
 from multimodal_similarity_tpu_torch.utils.logging import (
     write_projector_config, write_projector_embedding)
 
@@ -83,16 +95,21 @@ def pack_triplets(idx, triplet_per_batch: int):
 
 
 def budget_batches(exp: HondaExperiment, cfg: TrainConfig,
-                   mine_rng: random.Random):
+                   mine_rng: random.Random, mesh=None):
     """One item per loader batch, across epochs, for the feed thread: the
     budget batch (with the random miner's triplets), or None when the
     random miner finds none.  Under --bf16_features the host miner's f32
     rows go up beside the bf16 ones as ``mine_events``: the JAX trainer
-    embeds the f32 host batch for that miner."""
+    embeds the f32 host batch for that miner.  On a ``mesh`` without
+    --multihost every rank draws the global batch and keeps its rows of
+    the events (labels and mask stay global); under --multihost the
+    loader's batch is this rank's rows already."""
     while True:
         produced = 0
-        for b in exp.loader.epoch():
+        for b in exp.loader_epoch():
             produced += 1
+            if mesh is not None and not cfg.multihost:
+                b["events"] = b["events"][mesh.rows(len(b["events"]))]
             if cfg.triplet_select == "random":
                 n = int(b["num_events"])
                 idx = select_triplets_random(
@@ -111,11 +128,23 @@ def budget_batches(exp: HondaExperiment, cfg: TrainConfig,
 
 
 def make_step_runner(cfg: TrainConfig, model, optimizer, device,
-                     mine_gen: torch.Generator, mine_rng: random.Random):
+                     mine_gen: torch.Generator, mine_rng: random.Random,
+                     mesh=None):
     """(the feed's device keys, ``run(batch, lr)``): one training step on
-    a received batch with the configured miner.  ``run`` returns the
-    step's aux, or None when the host miner finds no triplet."""
+    a received batch with the configured miner (on a ``mesh``, the
+    data-parallel fused step).  ``run`` returns the step's aux, or None
+    when the host miner finds no triplet."""
     t_cap = cfg.triplet_per_batch
+    if mesh is not None:
+        dp = make_dp_triplet_step(
+            model, optimizer, mesh, triplet_per_batch=t_cap,
+            alpha=cfg.alpha, num_negative=cfg.num_negative,
+            metric=cfg.metric, normalized=cfg.normalized,
+            lambda_l2=cfg.lambda_l2, gather_smalls=cfg.multihost,
+            generator=mine_gen)
+        return (("events", "labels", "mask"),
+                lambda batch, lr: dp(batch["events"], batch["labels"],
+                                     batch["mask"], lr))
     if cfg.triplet_select == "facenet":
         fused = make_triplet_train_step(
             model, optimizer, triplet_per_batch=t_cap, alpha=cfg.alpha,
@@ -162,7 +191,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
         raise NotImplementedError(
             f"--triplet_select {cfg.triplet_select!r}; expected one of "
             f"{MINERS}")
-    _check_supported(cfg)
+    _check_supported(cfg, "base_model", data_parallel=True, multihost=True)
     if cfg.int8_features and cfg.triplet_select != "facenet":
         raise ValueError("--int8_features requires the device-fed path "
                          "(--triplet_select facenet); the host miners "
@@ -171,8 +200,27 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
         raise ValueError("--device_cache requires --triplet_select facenet "
                          "(the device-fed fused step)")
     device = resolve_device(device)
-    exp = HondaExperiment(cfg, event_budget=event_budget,
-                          result_dir=result_dir, supports_int8=True)
+    event_budget = event_budget or cfg.event_per_batch
+    mesh = None
+    if cfg.triplet_select == "facenet":
+        # the budget rounded up to a multiple of the processes
+        mesh, event_budget, device = process_mesh(cfg, event_budget,
+                                                  device)
+    elif cfg.multihost or env_world_size() > 1:
+        raise NotImplementedError(
+            "--multihost requires --triplet_select facenet (the fused "
+            "device-mining step; host miners are single-process)")
+    if cfg.multihost and mesh is None:
+        raise RuntimeError("--multihost needs >= 2 devices across processes")
+    pid = mesh.rank if mesh is not None else 0
+    # --multihost: this rank loads its session shard and its slice of the
+    # budget, with the reference's per-process loader seed
+    exp = HondaExperiment(
+        cfg, event_budget=(event_budget // mesh.size if cfg.multihost
+                           else event_budget),
+        result_dir=result_dir, supports_int8=True, mesh=mesh,
+        session_shard=cfg.multihost,
+        loader_seed=cfg.seed + pid if cfg.multihost else None)
     init_gen = torch.Generator().manual_seed(cfg.seed)
     drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     mine_gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)
@@ -185,13 +233,18 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     step_host = 0
     if cfg.model_path:
         step_host = load_checkpoint(cfg.model_path, model, optimizer)
+    if mesh is not None:
+        replicate([p.data for p in model.parameters()], mesh)
+        if not cfg.silent_mode:
+            print(f"[{cfg.name}] data-parallel over {mesh.size} processes"
+                  + (" (multihost)" if cfg.multihost else ""))
 
     embed_fn = make_embed_fn(model, cfg.normalized)
     val_x = torch.from_numpy(exp.val_feats).to(device)
     # a config-seeded stream for the host miners: the JAX trainer's draws
     mine_rng = random.Random(cfg.seed)
     device_keys, run = make_step_runner(cfg, model, optimizer, device,
-                                        mine_gen, mine_rng)
+                                        mine_gen, mine_rng, mesh)
 
     # --device_cache: the train windows stay on the device; a step is one
     # plan upload and one fused gather + mine + train (None: stream)
@@ -209,8 +262,8 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
                 f"triplets {sc['triplet_num']:.0f}")
 
     metrics = {}
-    exp.open_feed(device, budget_batches(exp, cfg, mine_rng), device_keys,
-                  cached=cached, **feature_keys(cfg))
+    exp.open_feed(device, budget_batches(exp, cfg, mine_rng, mesh),
+                  device_keys, cached=cached, **feature_keys(cfg))
     try:
         epoch = epoch_of_step(step_host, exp.batch_per_epoch)
         while epoch < cfg.max_epochs:
@@ -220,19 +273,23 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
             # a None batch has no random triplet, a None step no host-mined
             # one
             step_host = exp.run_epoch(run, lr, step_host, epoch, echo)
+            if exp.preempted(step_host, model, optimizer):
+                break
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
                 break
             metrics, val_emb = validate(embed_fn, val_x, exp.val_labels,
-                                        device)
+                                        device, beat=exp.control.beat_fn)
             exp.log(step_host, metrics,
                     f"[{cfg.name}] epoch {epoch + 1} val mAP "
                     f"{metrics['val_mAP']:.4f} R@1 "
                     f"{metrics['val_recall@1']:.4f}")
-            write_projector_embedding(exp.result_dir, val_emb.cpu().numpy())
-            write_projector_config(exp.result_dir)
-            exp.ckpt.save(model, optimizer, step_host)
+            if exp.is_chief:
+                write_projector_embedding(exp.result_dir,
+                                          val_emb.cpu().numpy())
+                write_projector_config(exp.result_dir)
+            exp.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
         exp.close()

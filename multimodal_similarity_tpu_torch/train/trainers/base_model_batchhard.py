@@ -5,15 +5,23 @@ l2-normalisation, and a batch-structured objective through fused CUDA
 kernels: batch-hard ("In Defense of the Triplet Loss",
 ops/kernels/batch_hard.py) or, with ``loss_kind="lifted"``, the
 lifted-structured loss (ops/kernels/lifted.py; base_model_lifted.py).  Adam
-(eps=0.1), per-epoch leave-one-out validation and a checkpoint.  Single
-device: more than one visible GPU is not sharded.  Streamed, the balanced
-selection, its row gather, the --bf16_features cast or --int8_features
-quantizing and the upload run on the feed thread, two batches ahead
-(data/device_feed.py).  With --device_cache the train windows stay on the
-device as int8 (data/device_cache.py): the balanced selection runs on each
-plan's host labels, and one fused step gathers the selected rows' TSN
-frames and trains (``make_cached_balanced_step``); --steps_per_dispatch K
-issues K such steps back to back (train/cached_steps.py).
+(eps=0.1), per-epoch leave-one-out validation and a checkpoint.  Under
+``torchrun`` with more than one process, every rank draws the same global
+balanced batch and trains on its contiguous rows of it; the loss rides the
+f32 ring (parallel/ring_mining.py, parallel/ring_lifted.py) and the ranks'
+gradients are summed (ROADMAP D6); process 0 writes the checkpoints.
+--multihost raises (the JAX trainer has no multi-process path; D6), and so
+does --device_cache on more than one process (slice 8c-ii).  Streamed, the
+balanced selection, its row gather, the --bf16_features cast or
+--int8_features quantizing and the upload run on the feed thread, two
+batches ahead (data/device_feed.py).  With --device_cache the train
+windows stay on the device as int8 (data/device_cache.py): the balanced
+selection runs on each plan's host labels, and one fused step gathers the
+selected rows' TSN frames and trains (``make_cached_balanced_step``);
+--steps_per_dispatch K issues K such steps back to back
+(train/cached_steps.py).  Run control (``--profile_dir``,
+``--watchdog_secs``, SIGTERM checkpoint-and-stop) is the experiment's
+(_honda.py).
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard --DATA_ROOT <dir> ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -37,6 +45,16 @@ from multimodal_similarity_tpu_torch.models import build_encoder
 from multimodal_similarity_tpu_torch.ops.kernels import (
     batch_hard_fused, lifted_loss_fused)
 from multimodal_similarity_tpu_torch.ops.mining import select_batch_balanced
+from multimodal_similarity_tpu_torch.parallel.data_parallel import (
+    backward_once, sum_gradients)
+from multimodal_similarity_tpu_torch.parallel.mesh import (
+    auto_mesh, replicate)
+from multimodal_similarity_tpu_torch.parallel.multihost import (
+    backend_for, env_world_size, initialize_distributed)
+from multimodal_similarity_tpu_torch.parallel.ring_lifted import (
+    make_ring_lifted_loss)
+from multimodal_similarity_tpu_torch.parallel.ring_mining import (
+    make_ring_batch_hard_loss)
 from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
 from multimodal_similarity_tpu_torch.train.state import (
     apply_gradients, build_optimizer, l2_regularization,
@@ -57,55 +75,91 @@ class TrainResult(NamedTuple):
     result_dir: str
 
 
-def _check_supported(cfg: TrainConfig, no_cache: Optional[str] = None
-                     ) -> None:
-    """Raise for every option whose feature is not ported yet, naming the
-    ROADMAP slice that ports it.  ``no_cache`` names a trainer that has no
-    cached feed in the JAX package either (which streams there silently):
-    --device_cache raises ValueError on it (ROADMAP D5)."""
+def _check_supported(cfg: TrainConfig, trainer: str, no_cache: bool = False,
+                     data_parallel: bool = False,
+                     multihost: bool = False) -> None:
+    """Raise for every option ``trainer`` cannot take.  ``no_cache``: the
+    JAX trainer has no cached feed either (and streams there silently), so
+    --device_cache raises ValueError (ROADMAP D5).  A trainer without a
+    multi-process path in JAX (which ignores --multihost there) raises
+    ValueError for --multihost unless ``multihost``, and for a
+    ``torchrun`` launch of more than one process unless ``data_parallel``
+    (ROADMAP D6).  --model_parallel is not ported (ROADMAP slice 8c-ii)."""
     if no_cache and cfg.device_cache:
-        raise ValueError(f"--device_cache: {no_cache} has no cached feed")
-    unported = (
-        (cfg.multihost, "--multihost", "8c"),
-        (cfg.model_parallel > 1, "--model_parallel", "8c"),
-        (bool(cfg.profile_dir), "--profile_dir", "8b"),
-        (cfg.watchdog_secs > 0, "--watchdog_secs", "8b"),
-    )
-    for is_set, flag, slice_no in unported:
-        if is_set:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP slice {slice_no})")
+        raise ValueError(f"--device_cache: {trainer} has no cached feed")
+    if cfg.model_parallel > 1:
+        raise NotImplementedError(
+            "--model_parallel is not ported yet (ROADMAP slice 8c-ii)")
+    if cfg.multihost and not multihost:
+        raise ValueError(f"--multihost: {trainer} has no multi-process path")
+    if env_world_size() > 1 and not (data_parallel or multihost):
+        raise ValueError(f"{trainer} has no multi-process path "
+                         f"(WORLD_SIZE={env_world_size()})")
+
+
+def process_mesh(cfg: TrainConfig, batch_axis: int, device: torch.device):
+    """(mesh | None, batch axis rounded to the mesh, device): the process
+    group started from the ``--multihost`` coordinator flags, or else from
+    ``torchrun``'s environment, on the backend ``device`` takes (NCCL on
+    the card); None without one, or with a single process.  On a mesh the
+    device returned is the rank's own (``cuda:<LOCAL_RANK>`` under NCCL):
+    the trainer places everything there, the feed thread included, whose
+    current CUDA device is not the one the main thread was bound to."""
+    if cfg.multihost:
+        initialize_distributed(
+            cfg.coordinator_address or None, cfg.num_processes or None,
+            cfg.process_id if cfg.process_id >= 0 else None,
+            backend=backend_for(device))
+    else:
+        initialize_distributed(backend=backend_for(device))
+    mesh, batch_axis = auto_mesh(batch_axis, verbose=not cfg.silent_mode)
+    if mesh is not None and mesh.device.type != device.type:
+        raise ValueError(f"the process group's backend runs on "
+                         f"{mesh.device.type}; the trainer's device is "
+                         f"{device}")
+    return mesh, batch_axis, (device if mesh is None else mesh.device)
 
 
 def make_loss(cfg: TrainConfig, loss_kind: str,
-              precision: Optional[str] = None) -> Callable:
+              precision: Optional[str] = None, mesh=None) -> Callable:
     """loss(emb, labels) -> the loss tuple of the trainer's objective.
 
     Batch-hard: the soft margin unless ``--no_soft`` (then ``alpha``), bf16
     stats.  Lifted: margin ``alpha``, f32 stats (the JAX default for
     lifted), and the triangular bounded forward when the embeddings are
-    l2-normalised.  ``precision`` overrides the kind's default."""
+    l2-normalised.  ``precision`` overrides the kind's default.  On a
+    ``mesh`` of processes ``emb`` and ``labels`` are this rank's rows and
+    the loss rides the f32 ring (parallel/ring_mining.py,
+    parallel/ring_lifted.py), as the JAX trainer's does on a mesh."""
+    if loss_kind not in ("batchhard", "lifted"):
+        raise ValueError(f"unknown loss_kind {loss_kind!r}; expected "
+                         "'batchhard' or 'lifted'")
+    if mesh is not None:
+        if loss_kind == "batchhard":
+            return make_ring_batch_hard_loss(
+                mesh, cfg.alpha if cfg.no_soft else "soft")
+        return make_ring_lifted_loss(mesh, cfg.alpha)
     if loss_kind == "batchhard":
         margin = cfg.alpha if cfg.no_soft else "soft"
         prec = precision or "bf16"
         return lambda emb, labels: batch_hard_fused(
             emb, labels, margin, weighted=True, precision=prec)
-    if loss_kind == "lifted":
-        prec = precision or "f32"
-        return lambda emb, labels: lifted_loss_fused(
-            emb, labels, cfg.alpha, weighted=True, precision=prec,
-            bounded=cfg.normalized)
-    raise ValueError(f"unknown loss_kind {loss_kind!r}; expected "
-                     "'batchhard' or 'lifted'")
+    prec = precision or "f32"
+    return lambda emb, labels: lifted_loss_fused(
+        emb, labels, cfg.alpha, weighted=True, precision=prec,
+        bounded=cfg.normalized)
 
 
 def make_balanced_batch_step(model, optimizer, cfg: TrainConfig,
                              loss_kind: str = "batchhard",
-                             precision: Optional[str] = None):
+                             precision: Optional[str] = None, mesh=None):
     """step(events [B, ...], labels [B], learning_rate) -> device scalars,
     one optimizer step of the ``loss_kind`` objective over a class-balanced
-    batch; ``events`` dense or the int8 feed's {"q", "scale"}."""
-    loss_fn = make_loss(cfg, loss_kind, precision)
+    batch; ``events`` dense or the int8 feed's {"q", "scale"}.  On a
+    ``mesh`` the step takes this rank's rows of the batch, the loss rides
+    the ring, and the ranks' gradients are summed before Adam steps (the
+    gradient of the one global loss, as in JAX)."""
+    loss_fn = make_loss(cfg, loss_kind, precision, mesh)
 
     def step(events, labels: torch.Tensor, learning_rate: float):
         model.train()
@@ -115,9 +169,17 @@ def make_balanced_batch_step(model, optimizer, cfg: TrainConfig,
             emb = l2_normalize(emb)
         loss, num_active, *_ = loss_fn(emb, labels)
         total = loss
-        if cfg.lambda_l2:
-            total = total + cfg.lambda_l2 * l2_regularization(model)
-        total.backward()
+        if mesh is None:
+            if cfg.lambda_l2:
+                total = total + cfg.lambda_l2 * l2_regularization(model)
+            total.backward()
+        else:
+            reg = (cfg.lambda_l2 * l2_regularization(model)
+                   if cfg.lambda_l2 else None)
+            backward_once(loss, reg, mesh)
+            sum_gradients(model, mesh)
+            if reg is not None:
+                total = total + reg
         apply_gradients(optimizer, learning_rate)
         return {"loss": total.detach(), "metric_loss": loss.detach(),
                 "active_count": num_active.detach()}
@@ -161,17 +223,20 @@ def cached_selections(cache, batch_size: int, sel_rng: random.Random):
 
 
 def balanced_batches(exp: HondaExperiment, batch_size: int,
-                     sel_rng: random.Random):
+                     sel_rng: random.Random, mesh=None):
     """One item per loader batch, across epochs, for the feed thread (so
     the draws stay in loader order): the batch with its balanced [B]
-    selection as ``rows``, or None when it has no foreground class."""
+    selection as ``rows`` (on a ``mesh``, this rank's contiguous rows of
+    it), or None when it has no foreground class."""
     while True:
         produced = 0
-        for b in exp.loader.epoch():
+        for b in exp.loader_epoch():
             produced += 1
             n = int(b["num_events"])
             idx = select_batch_balanced(b["labels"][:n], batch_size,
                                         rng=sel_rng)
+            if idx.size and mesh is not None:
+                idx = idx[mesh.rows(idx.size)]
             yield (None if idx.size == 0 else
                    {"events": b["events"], "labels": b["labels"],
                     "rows": idx})
@@ -187,10 +252,15 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
     # the validation loss is the trainer's own objective; an unknown loss
     # kind raises here, before any data is read
     val_loss_fn = make_loss(cfg, loss_kind)
-    _check_supported(cfg)
+    _check_supported(cfg, f"base_model_{loss_kind}", data_parallel=True)
     device = resolve_device(device)
+    # under torchrun: every rank draws the same global balanced batch and
+    # trains on its rows of it (ROADMAP D6)
+    batch_size = cfg.batch_size if cfg.batch_size > 8 else 64
+    mesh, batch_size, device = process_mesh(cfg, batch_size, device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
-                          result_dir=result_dir, supports_int8=True)
+                          result_dir=result_dir, supports_int8=True,
+                          mesh=mesh)
     init_gen = torch.Generator().manual_seed(cfg.seed)
     drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     model = build_encoder(cfg.network, num_seg=cfg.num_seg,
@@ -202,10 +272,15 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
     step_host = 0
     if cfg.model_path:
         step_host = load_checkpoint(cfg.model_path, model, optimizer)
+    if mesh is not None:
+        replicate([p.data for p in model.parameters()], mesh)
+        if not cfg.silent_mode:
+            print(f"[{cfg.name}] {loss_kind} data-parallel over "
+                  f"{mesh.size} processes (ring)")
 
     embed_fn = make_embed_fn(model, cfg.normalized)
-    batch_size = cfg.batch_size if cfg.batch_size > 8 else 64
-    step_fn = make_balanced_batch_step(model, optimizer, cfg, loss_kind)
+    step_fn = make_balanced_batch_step(model, optimizer, cfg, loss_kind,
+                                       mesh=mesh)
     # the validation features go to the device once, not every epoch
     val_x = torch.from_numpy(exp.val_feats).to(device)
     # a config-seeded rng for the balanced selection: the same draws as the
@@ -226,7 +301,7 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
         return step_fn(batch["events"], batch["labels"], lr)
 
     metrics = {}
-    exp.open_feed(device, balanced_batches(exp, batch_size, sel_rng),
+    exp.open_feed(device, balanced_batches(exp, batch_size, sel_rng, mesh),
                   ("events", "labels"), cached=cached,
                   plans=lambda: cached_selections(cache, batch_size, sel_rng),
                   **feature_keys(cfg))
@@ -237,16 +312,18 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
                                         cfg.static_epochs, cfg.max_epochs)
             step_at_epoch_start = step_host
             step_host = exp.run_epoch(run, lr, step_host, epoch, echo)
+            if exp.preempted(step_host, model, optimizer):
+                break
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
                 break
             metrics, _ = validate(embed_fn, val_x, exp.val_labels, device,
-                                  val_loss_fn)
+                                  val_loss_fn, beat=exp.control.beat_fn)
             exp.log(step_host, metrics,
                     f"[{cfg.name}] epoch {epoch + 1} val mAP "
                     f"{metrics['val_mAP']:.4f}")
-            exp.ckpt.save(model, optimizer, step_host)
+            exp.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
         exp.close()

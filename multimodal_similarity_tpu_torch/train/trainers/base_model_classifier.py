@@ -103,7 +103,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step); the JAX trainer
     has no such restore."""
-    _check_supported(cfg, no_cache="base_model_classifier")
+    _check_supported(cfg, "base_model_classifier", no_cache=True)
     device = resolve_device(device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
                           result_dir=result_dir)

@@ -14,8 +14,10 @@ validation sessions' records (leave-one-out retrieval mAP and Recall@1)
 and saves a checkpoint.
 
 The batch goes up on the feed thread (data/device_feed.py).  Single
-device; ``--watchdog_secs``, ``--device_cache`` and the other slice-8
-flags raise.  No CUDA kernel of ``csrc/`` is on this path.
+process: ``--multihost`` and a multi-process ``torchrun`` launch raise
+(ROADMAP D6), ``--device_cache`` too (D5).  SIGTERM checkpoints the exact
+step and exits; ``--watchdog_secs`` and ``--profile_dir`` run as on the
+other trainers.  No CUDA kernel of ``csrc/`` is on this path.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model_tf --DATA_ROOT <dir> --network convlstm --feat resnet ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -41,6 +43,7 @@ from multimodal_similarity_tpu_torch.ops.losses import triplet_loss_masked
 from multimodal_similarity_tpu_torch.ops.mining import mine_semihard_triplets
 from multimodal_similarity_tpu_torch.train.checkpoints import (
     CheckpointManager, load_checkpoint)
+from multimodal_similarity_tpu_torch.train.run_control import RunControl
 from multimodal_similarity_tpu_torch.train.state import (
     apply_gradients, build_optimizer, l2_regularization,
     learning_rate_schedule)
@@ -150,7 +153,7 @@ def train(cfg: TrainConfig, event_per_batch: int = 64,
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step); the JAX trainer
     has no such restore."""
-    _check_supported(cfg, no_cache="base_model_tf")
+    _check_supported(cfg, "base_model_tf", no_cache=True)
     device = resolve_device(device)
     feat, flat_dim, hwc = frame_layout(cfg)
     train_paths = list_event_tfrecords(cfg.tfrecords_root, cfg.train_session)
@@ -175,6 +178,9 @@ def train(cfg: TrainConfig, event_per_batch: int = 64,
     step = make_step(model, optimizer, cfg, hwc, mine_gen)
 
     metrics = {}
+    # the SIGTERM guard, the --watchdog_secs hang watchdog (beaten after
+    # each step's scalars are read back) and the --profile_dir step window
+    control = RunControl(cfg)
     try:
         epoch = epoch_of_step(step_host, loader.batches_per_epoch)
         while epoch < cfg.max_epochs:
@@ -187,11 +193,18 @@ def train(cfg: TrainConfig, event_per_batch: int = 64,
                     step_host += 1
                     scalars = {k: float(v) for k, v in aux.items()}
                     logger.log(step_host, scalars)
+                    control.step_done(step_host)  # scalars read back
                     if not cfg.silent_mode:
                         print(f"[{cfg.name}] epoch {epoch + 1} step "
                               f"{step_host} loss {scalars['loss']:.4f}")
+                    if control.stop_requested(step_host):
+                        break
             finally:
                 stream.close()
+            # checkpoint the exact step and exit; --model_path resumes
+            if control.preempted(step_host,
+                                 lambda s: ckpt.save(model, optimizer, s)):
+                break
             if val_paths:
                 metrics = validate(model, cfg, val_paths, feat, flat_dim,
                                    hwc, event_per_batch, device)
@@ -199,6 +212,7 @@ def train(cfg: TrainConfig, event_per_batch: int = 64,
             ckpt.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, loader.batches_per_epoch)
     finally:
+        control.close()
         logger.close()
     return TrainResult(model, optimizer, step_host, metrics, result_dir)
 

@@ -90,7 +90,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step); the JAX trainer
     has no such restore."""
-    _check_supported(cfg)
+    _check_supported(cfg, "cross_prediction")
     device = resolve_device(device)
     modalities = cfg.feat if isinstance(cfg.feat, list) else \
         ["resnet", "sensors"]

@@ -187,9 +187,8 @@ def train(cfg: TrainConfig, sensors_only: bool = False,
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step); the JAX trainer
     has no such restore."""
-    _check_supported(cfg, no_cache=("modality_hallucination_weak"
-                                    if sensors_only
-                                    else "modality_hallucination"))
+    _check_supported(cfg, ("modality_hallucination_weak" if sensors_only
+                           else "modality_hallucination"), no_cache=True)
     device = resolve_device(device)
     modalities = ["resnet", "sensors"] + ([] if sensors_only
                                           else ["segment"])

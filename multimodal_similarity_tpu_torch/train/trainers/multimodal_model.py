@@ -32,7 +32,7 @@ on the device, with no readback (``log_deferred``).  With it,
 fused step gathers each batch there (train/cached_steps.py), with the
 class-margin table and the multimodal switch as epoch constants;
 ``--steps_per_dispatch`` K issues K such steps back to back.  Single
-device; the multi-process flags raise (ROADMAP slice 8c).  No CUDA kernel
+device; the multi-process paths raise (ROADMAP slice 8c-ii).  No CUDA kernel
 of ``csrc/`` is on either path.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.multimodal_model --DATA_ROOT <dir> --feat resnet,sensors,segment --sensors_path <ckpt> --segment_path <ckpt> ...
@@ -81,6 +81,7 @@ from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
 from multimodal_similarity_tpu_torch.train.trainers._loop import (
     loader_batches)
+from multimodal_similarity_tpu_torch.parallel.multihost import env_world_size
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported
 
@@ -458,7 +459,12 @@ def train(cfg: TrainConfig, hard_only: bool = False,
     visible and the CPU was not asked for).  ``device_mining`` runs the
     fused step, ``hard_only`` drops the structure term.  ``--model_path``
     restores a port checkpoint (weights, optimizer state and step)."""
-    _check_supported(cfg)
+    name = "multimodal_model_hardonly" if hard_only else "multimodal_model"
+    if cfg.multihost or env_world_size() > 1:
+        raise NotImplementedError(
+            f"{name} on more than one process (--multihost, or torchrun) is "
+            "not ported yet (ROADMAP slice 8c-ii)")
+    _check_supported(cfg, name)
     if cfg.int8_features and not device_mining:
         raise ValueError("--int8_features requires --device_mining (the "
                          "device-fed path); the host miners gather dense "
@@ -539,11 +545,14 @@ def train(cfg: TrainConfig, hard_only: bool = False,
                           cm=(margin_table(dist_dict, device)
                               if device_mining else None))
             step_host = exp.run_epoch(run, lr, step_host, epoch, echo)
+            if exp.preempted(step_host, model, optimizer):
+                break
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
                 break
-            metrics, val_emb = validate(embed_fn, val_x, val_labels, device)
+            metrics, val_emb = validate(embed_fn, val_x, val_labels, device,
+                                        beat=exp.control.beat_fn)
             exp.log(step_host, metrics,
                     f"[{cfg.name}] epoch {epoch + 1} val mAP "
                     f"{metrics['val_mAP']:.4f}")
@@ -554,7 +563,7 @@ def train(cfg: TrainConfig, hard_only: bool = False,
                 with open(os.path.join(exp.result_dir, "dist_dict.pkl"),
                           "wb") as f:
                     pickle.dump(dist_dict, f)
-            exp.ckpt.save(model, optimizer, step_host)
+            exp.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
         exp.close()

@@ -236,7 +236,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step); the JAX trainer
     has no such restore."""
-    _check_supported(cfg, no_cache="multimodal_model_weak")
+    _check_supported(cfg, "multimodal_model_weak", no_cache=True)
     if cfg.multimodal_select not in SELECTORS:
         raise NotImplementedError(
             f"--multimodal_select {cfg.multimodal_select!r}; expected one "
@@ -320,17 +320,22 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
                     exp.log(step_host, {"loss": loss, "learning_rate": lr},
                             f"[{cfg.name}] epoch {epoch + 1} step "
                             f"{step_host} loss {loss:.4f}")
+                if exp.control.stop_requested(step_host):
+                    break
+            if exp.preempted(step_host, model, optimizer):
+                break
             if steps_this_epoch == 0:
                 # no labeled session and the pseudo-labels not active yet:
                 # the step count cannot move
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable slice "
                       "this epoch; stopping")
                 break
-            metrics, _ = validate(embed_fn, val_x, exp.val_labels, device)
+            metrics, _ = validate(embed_fn, val_x, exp.val_labels, device,
+                                  beat=exp.control.beat_fn)
             exp.log(step_host, metrics,
                     f"[{cfg.name}] epoch {epoch + 1} val mAP "
                     f"{metrics['val_mAP']:.4f}")
-            exp.ckpt.save(model, optimizer, step_host)
+            exp.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:
         stream.close()  # cancels the feed and loader threads

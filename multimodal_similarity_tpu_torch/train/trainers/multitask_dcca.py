@@ -201,8 +201,8 @@ def train(cfg: TrainConfig, use_mse: bool = False,
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step); the JAX trainer
     has no such restore."""
-    _check_supported(cfg, no_cache=("multitask_cross_prediction"
-                                    if use_mse else "multitask_dcca"))
+    _check_supported(cfg, ("multitask_cross_prediction" if use_mse
+                           else "multitask_dcca"), no_cache=True)
     device = resolve_device(device)
     modalities = cfg.feat if isinstance(cfg.feat, list) and \
         len(cfg.feat) == 3 else ["resnet", "sensors", "segment"]

@@ -107,7 +107,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     """Train on ``device`` (default ``cuda``; raises when no card is
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step)."""
-    _check_supported(cfg)
+    _check_supported(cfg, "multitask_model")
     device = resolve_device(device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
                           result_dir=result_dir)

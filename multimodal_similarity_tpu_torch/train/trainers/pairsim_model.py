@@ -205,7 +205,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     """Train on ``device`` (default ``cuda``; raises when no card is
     visible and the CPU was not asked for).  ``--model_path`` restores a
     port checkpoint (weights, optimizer state and step)."""
-    _check_supported(cfg, no_cache="pairsim_model")
+    _check_supported(cfg, "pairsim_model", no_cache=True)
     device = resolve_device(device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
                           result_dir=result_dir, limit_label_num=False,
@@ -263,7 +263,11 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
                     echo_fn=lambda sc, e=epoch, s=step_host: (
                         f"[{cfg.name}] epoch {e + 1} step {s} loss "
                         f"{sc['loss']:.4f} acc {sc['acc']:.3f}"))
+                if exp.control.stop_requested(step_host):
+                    break
             exp.flush_logs()
+            if exp.preempted(step_host, model, optimizer):
+                break
             if step_host == step_at_epoch_start:
                 print(f"[{cfg.name}] epoch {epoch + 1}: no trainable batch; "
                       "stopping")
@@ -273,7 +277,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
             metrics = {"val_acc": val_acc}
             exp.log(step_host, metrics,
                     f"[{cfg.name}] epoch {epoch + 1} val acc {val_acc:.4f}")
-            exp.ckpt.save(model, optimizer, step_host)
+            exp.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
         if val_prob is not None:
             write_val_results(os.path.join(exp.result_dir,

@@ -117,7 +117,7 @@ def train(cfg: TrainConfig, mode: str = "seq2seq",
     has no such restore."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; expected one of {MODES}")
-    _check_supported(cfg)
+    _check_supported(cfg, "unimodal_pretrain_sae")
     device = resolve_device(device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
                           result_dir=result_dir, limit_label_num=False)

@@ -324,7 +324,8 @@ def test_cli_runs_on_cpu(tmp_path, name):
 
 @pytest.mark.parametrize("name", list(CLIS))
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
-    """The slice-8 flags raise NotImplementedError naming slice 8;
+    """--multihost raises D6's ValueError (the JAX trainers have no
+    multi-process path) and --profile_dir writes a step-window trace;
     --device_cache raises D5's ValueError on the classifier (no cached
     feed) and the reference's on cross_prediction under --bf16_features
     (the cache stores int8); --int8_features raises ValueError, and the
@@ -337,9 +338,13 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
                     feat=",".join(modalities), **dict(CONV, network=network),
                     **kw)
 
-    for flags in (dict(multihost=True), dict(profile_dir="p")):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            module.train(cfg(**flags), device="cpu")
+    with pytest.raises(ValueError, match=f"--multihost: {name} has no "
+                       "multi-process path"):
+        module.train(cfg(multihost=True), device="cpu")
+    prof = tmp_path / "prof"
+    module.train(cfg(profile_dir=str(prof), profile_steps=1, max_epochs=1),
+                 device="cpu")
+    assert len(list(prof.glob("trace_steps*.pt.trace.json"))) == 1
     with pytest.raises(ValueError, match=(
             "excludes --bf16_features" if name == "cross_prediction"
             else f"{name} has no cached feed")):

@@ -582,7 +582,9 @@ def test_cli_runs_on_cpu(tmp_path, name):
 
 
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch):
-    """The multi-process flags raise NotImplementedError naming slice 8;
+    """The multi-process flags raise NotImplementedError naming slice
+    8c-ii on the flagship, and --multihost D6's ValueError on the weak
+    trainer (no multi-process path in JAX);
     --device_cache without --device_mining, or with --bf16_features, and
     --int8_features without --device_mining raise ValueError on the
     flagship, --device_cache (D5) and --int8_features on the weak trainer;
@@ -595,9 +597,12 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch):
 
     for flags in (dict(multihost=True), dict(model_parallel=2)):
         for device_mining in (False, True):
-            with pytest.raises(NotImplementedError, match="slice 8"):
+            with pytest.raises(NotImplementedError, match="slice 8c-ii"):
                 multimodal_model.train(cfg(**flags), device="cpu",
                                        device_mining=device_mining)
+    with pytest.raises(ValueError, match="--multihost: multimodal_model_weak "
+                       "has no multi-process path"):
+        multimodal_model_weak.train(cfg(multihost=True), device="cpu")
     with pytest.raises(ValueError, match="device_cache requires "
                        "--device_mining"):
         multimodal_model.train(cfg(device_cache=True, steps_per_dispatch=2),

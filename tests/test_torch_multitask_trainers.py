@@ -30,6 +30,7 @@ from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.convert import load_flax_params
 from multimodal_similarity_tpu_torch.models import RTSN
 from multimodal_similarity_tpu_torch.train.checkpoints import save_checkpoint
+from multimodal_similarity_tpu_torch.utils.watchdog import StepWatchdog
 from multimodal_similarity_tpu_torch.train.trainers import (
     modality_hallucination, modality_hallucination_weak,
     multitask_cross_prediction, multitask_dcca)
@@ -333,10 +334,13 @@ def test_cli_runs_on_cpu(tmp_path, name):
 
 @pytest.mark.parametrize("name", list(CLIS))
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
-    """The slice-8 flags raise NotImplementedError naming slice 8,
-    --device_cache raises D5's ValueError (the JAX trainer has no cached
-    feed), --int8_features raises ValueError, and the default device and
-    ``--device cuda`` raise when no card is visible."""
+    """--multihost raises D6's ValueError (no multi-process path in JAX),
+    --model_parallel NotImplementedError naming slice 8c-ii, and
+    --watchdog_secs arms the watchdog, which each step beats and the end
+    of the run cancels unfired; --device_cache raises D5's ValueError (the
+    JAX trainer has no cached feed), --int8_features raises ValueError, and
+    the default device and ``--device cuda`` raise when no card is
+    visible."""
     module, feats, _ = CLIS[name]
     root = _data(tmp_path)
 
@@ -344,10 +348,20 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
         return _cfg(TrainConfig, DATA_ROOT=root, sess_per_batch=1,
                     feat=feats, **CONV, **kw)
 
-    for flags in (dict(multihost=True),
-                  dict(model_parallel=2), dict(watchdog_secs=1.0)):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            module.train(cfg(**flags), device="cpu")
+    with pytest.raises(ValueError, match=f"--multihost: {name} has no "
+                       "multi-process path"):
+        module.train(cfg(multihost=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 8c-ii"):
+        module.train(cfg(model_parallel=2), device="cpu")
+    beats = []
+    real_beat = StepWatchdog.beat
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(StepWatchdog, "beat",
+                  lambda self: beats.append(self) or real_beat(self))
+        res = module.train(cfg(watchdog_secs=60.0, max_epochs=1),
+                           device="cpu")
+    assert res.step >= 1 and beats
+    assert all(wd.fired == 0 and wd._timer is None for wd in beats)
     with pytest.raises(ValueError, match=f"{name} has no cached feed"):
         module.train(cfg(device_cache=True), device="cpu")
     with pytest.raises(ValueError, match="int8_features is not supported"):

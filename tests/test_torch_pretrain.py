@@ -435,6 +435,56 @@ def test_base_model_tf_matches_jax_trainer(sensors_root, tmp_path,
     assert f"t.ckpt-{res.step}" in os.listdir(res.result_dir)
 
 
+def test_base_model_tf_stops_and_watchdog(sensors_root, tmp_path,
+                                         monkeypatch, capsys):
+    """``base_model_tf``'s run control, as the JAX trainer's
+    (``base_model_tf.py:122-160``): a stop requested at the guard's second
+    poll ends the run after step 2 with that step checkpointed and
+    reported; ``--watchdog_secs`` arms the watchdog, which the run
+    cancels unfired."""
+    from multimodal_similarity_tpu_torch.train import run_control
+    from multimodal_similarity_tpu_torch.utils import preemption, watchdog
+
+    class FiringGuard(preemption.PreemptionGuard):
+        polls = 0
+
+        @property
+        def should_stop(self):
+            FiringGuard.polls += 1
+            if FiringGuard.polls > 1:
+                self.request_stop()
+            return self._stop.is_set()
+
+    armed = []
+    real_install = watchdog.install_hang_watchdog
+
+    def install(*a):
+        wd = real_install(*a)
+        armed.append(wd)
+        return wd
+
+    monkeypatch.setattr(preemption, "PreemptionGuard", FiringGuard)
+    monkeypatch.setattr(run_control, "install_hang_watchdog", install)
+    pcfg = _cfg(TrainConfig, DATA_ROOT=sensors_root, network="convlstm",
+                feat="sensors", n_input=8, n_C=4, emb_dim=16,
+                triplet_per_batch=16, MAX_LENGTH_FRAMES=45, max_epochs=50,
+                watchdog_secs=60.0)
+    pcfg.tfrecords_root = str(tmp_path / "tfr")
+    ds = prepare_dataset(pcfg.feature_root,
+                         pcfg.train_session + pcfg.val_session, "sensors",
+                         pcfg.label_root)
+    generate_event_tfrecords(ds, pcfg.tfrecords_root, ["sensors"])
+    res = base_model_tf.train(pcfg, event_per_batch=16,
+                              result_dir=str(tmp_path / "port"),
+                              device="cpu")
+    assert res.step == 2
+    assert "preemption signal: checkpointed at step 2" in \
+        capsys.readouterr().out
+    assert "t.ckpt-2" in os.listdir(res.result_dir)
+    (wd,) = armed
+    assert wd.fired == 0 and wd._timer is None
+
+
 # ---------------------------------------------------------------------------
 # CLIs and options
 # ---------------------------------------------------------------------------
@@ -467,11 +517,13 @@ def test_clis_run_the_chain_on_cpu(sensors_root, tmp_path):
 
 def test_options_and_missing_gpu_raise(sensors_root, tmp_path,
                                        monkeypatch):
-    """``--watchdog_secs`` raises NotImplementedError naming slice 8 on
-    ``base_model_tf``; ``--device_cache`` raises D5's ValueError there and
-    the reference's on the autoencoder trainer under ``--bf16_features``
-    (the cache stores int8); the default device raises when no card is
-    visible; ``base_model_tf`` without records raises."""
+    """``--multihost`` raises D6's ValueError on ``base_model_tf`` (no
+    multi-process path in JAX; its run control is checked in
+    ``test_base_model_tf_stops_and_watchdog``); ``--device_cache`` raises
+    D5's ValueError there and the reference's on the autoencoder trainer
+    under ``--bf16_features`` (the cache stores int8); the default device
+    raises when no card is visible; ``base_model_tf`` without records
+    raises."""
     cfg = _cfg(TrainConfig, **dict(SENSORS, DATA_ROOT=sensors_root))
     with pytest.raises(ValueError, match="excludes --bf16_features"):
         unimodal_pretrain_sae.train(_cfg(TrainConfig, **dict(
@@ -480,9 +532,10 @@ def test_options_and_missing_gpu_raise(sensors_root, tmp_path,
     with pytest.raises(ValueError, match="base_model_tf has no cached feed"):
         base_model_tf.train(_cfg(TrainConfig, DATA_ROOT=sensors_root,
                                  device_cache=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(ValueError, match="--multihost: base_model_tf has no "
+                       "multi-process path"):
         base_model_tf.train(_cfg(TrainConfig, DATA_ROOT=sensors_root,
-                                 watchdog_secs=5.0), device="cpu")
+                                 multihost=True), device="cpu")
     tcfg = _cfg(TrainConfig, DATA_ROOT=sensors_root, feat="sensors",
                 network="convlstm")
     tcfg.tfrecords_root = str(tmp_path / "none")

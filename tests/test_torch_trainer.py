@@ -195,9 +195,59 @@ def test_checkpoint_round_trip_and_pruning(tmp_path):
     ("model_parallel", 2, 8), ("profile_dir", "p", 8),
     ("watchdog_secs", 5.0, 8)])
 def test_unported_flags_raise(tmp_path, flag, value, slice_no):
-    cfg = _cfg(TrainConfig, DATA_ROOT=str(tmp_path), **{flag: value})
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        base_model_batchhard.train(cfg, device="cpu")
+    """The slice-8 flags on the batch-hard trainer: --multihost raises
+    ROADMAP D6's ValueError (the JAX trainer has no multi-process path),
+    --model_parallel NotImplementedError naming slice 8c-ii; --profile_dir
+    and --watchdog_secs run (slice 8b): a one-epoch run writes the
+    step-window trace, or arms the watchdog and cancels it unfired."""
+    if flag == "multihost":
+        cfg = _cfg(TrainConfig, DATA_ROOT=str(tmp_path), **{flag: value})
+        with pytest.raises(ValueError, match="--multihost: "
+                           "base_model_batchhard has no multi-process path"):
+            base_model_batchhard.train(cfg, device="cpu")
+        return
+    if flag == "model_parallel":
+        cfg = _cfg(TrainConfig, DATA_ROOT=str(tmp_path), **{flag: value})
+        with pytest.raises(NotImplementedError, match=f"slice {slice_no}c-ii"):
+            base_model_batchhard.train(cfg, device="cpu")
+        return
+    root = str(tmp_path / "data")
+    generate_synthetic_honda(root, n_sessions=5, frames_per_session=300,
+                             modal_dims={"resnet": (2, 2, 8)}, seed=0)
+    if flag == "profile_dir":
+        value = str(tmp_path / value)
+    cfg = _cfg(TrainConfig, DATA_ROOT=root, sess_per_batch=1, batch_size=32,
+               max_epochs=1, profile_steps=1, **{flag: value})
+    fired = []
+    real = base_model_batchhard.HondaExperiment.__init__
+
+    def init(self, *a, **k):
+        real(self, *a, **k)
+        wd = self.control.watchdog
+        if wd is not None:
+            wd.on_timeout = lambda: fired.append(1)
+            fired.append(wd)
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(base_model_batchhard.HondaExperiment, "__init__", init)
+        res = base_model_batchhard.train(cfg, event_budget=48, device="cpu")
+    assert res.step == 3
+    if flag == "profile_dir":
+        assert os.listdir(value) == ["trace_steps2-2.pt.trace.json"]
+    else:
+        (wd,) = fired  # armed, never fired, and cancelled on close
+        assert wd.fired == 0 and wd._timer is None
+
+
+def test_base_model_multihost_needs_processes(tmp_path):
+    """``base_model --multihost`` on one process raises the reference's
+    RuntimeError (no mesh of two or more devices across processes)."""
+    from multimodal_similarity_tpu_torch.train.trainers import base_model
+    cfg = _cfg(TrainConfig, DATA_ROOT=str(tmp_path), multihost=True,
+               triplet_select="facenet")
+    with pytest.raises(RuntimeError, match="--multihost needs >= 2 devices "
+                       "across processes"):
+        base_model.train(cfg, device="cpu")
 
 
 def test_lifted_and_missing_gpu_raise(tmp_path, monkeypatch):
