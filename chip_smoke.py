@@ -193,9 +193,7 @@ Phases, each fatal on failure (no error is caught):
    the 10-session directory one epoch each of ``base_model``,
    ``multitask_model``, ``pddm_model``, ``cross_prediction`` (mean-pooled
    target) and ``unimodal_pretrain_sae`` with --device_cache, with no
-   ``csrc/`` launch; then removes the full-budget directory and prints
-   each phase's native gathers and deferrals (phases 8-15 and 17 must
-   have gathered natively);
+   ``csrc/`` launch;
 19. run control and the process group (``run_control_phase``):
    ``base_model_batchhard --profile_dir --profile_steps 3`` for one epoch
    on the 40-session directory at base_model's width (the trace holds one
@@ -211,7 +209,20 @@ Phases, each fatal on failure (no error is caught):
    K4 and K5 at N=1024, d=256, each ring's forward plus backward time
    beside the kernel path's, ``make_dp_triplet_step`` against the fused
    semi-hard step at base_model's width (loss and parameters rtol 1e-5),
-   and ``sync_should_stop``'s all-reduce over NCCL.
+   and ``sync_should_stop``'s all-reduce over NCCL;
+20. slice 8c-ii on a one-rank NCCL group (``sharded_phase``), with no
+   launch of any ``csrc/`` kernel: ``RetrievalIndex`` on the mesh at phase
+   17's sizes against the index without one (f32 and int8 at 65,536 rows
+   index-equal, distances within SH_INDEX_RTOL; f32 at 400,000 rows by
+   ``same_topk``), each query's ms beside the unsharded one's; the
+   full-budget train sessions cached over the mesh and without it
+   (resident arrays and the first epoch's plans bit-equal, both build
+   times); the fused flagship step at train_multimodal_model.sh's width
+   on a full-budget batch and the cached flagship for two 2-step windows,
+   on the mesh and without it (loss and parameters within SH_STEP_RTOL,
+   ms a draw of each); then removes the full-budget directory and prints
+   each phase's native gathers and deferrals (phases 8-15 and 17 must
+   have gathered natively).
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -3780,11 +3791,12 @@ def same_topk(tag, got, want, want_next, atol=0.0, rtol=INDEX_RTOL):
     return int(set_rows.sum()), int(order_rows.sum())
 
 
-def unit_rows(n, d, seed):
-    """[n, d] random unit f32 rows, drawn on the card, as a host array."""
+def unit_rows(n, d, seed, device="cuda"):
+    """[n, d] random unit f32 rows, drawn on ``device``, as a host
+    array."""
     import torch
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(n, d, generator=gen, device="cuda")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=device)
     return (x / x.norm(dim=1, keepdim=True)).cpu().numpy()
 
 
@@ -4953,6 +4965,264 @@ def run_control_phase(root, steady_root):
     print(f"[rc] phase 19 took {time.time() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20, slice 8c-ii: sharded retrieval, the mesh cache and the flagship
+# on a process group
+# ---------------------------------------------------------------------------
+
+# the world-1 sharded index against the index without a mesh: distances,
+# relative
+SH_INDEX_RTOL = 1e-6
+# the flagship on the one-rank mesh against the single-device step: loss
+# and every parameter, relative
+SH_STEP_RTOL = 1e-5
+# the cached flagship's window (--steps_per_dispatch)
+SH_WINDOW = 2
+
+
+def sharded_index_checks(mesh, device, card):
+    """``RetrievalIndex`` on the one-rank mesh at phase 17's sizes (random
+    unit rows of width 256, Q = 1024, top-10) against the index without
+    one: f32 and int8 at 65,536 rows index-equal with distances within
+    SH_INDEX_RTOL, f32 at 400,000 rows (the chunked walk) by
+    ``same_topk``: sets equal where the 10th and 11th distances are apart,
+    order equal where every neighbour is.  Each with its ms host to host
+    (CUDA events around 5 queries) beside the unsharded index's."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.serving import RetrievalIndex
+    gallery = unit_rows(INDEX_ROWS["chunked"], INDEX_DIM, 17, device)
+    queries = unit_rows(INDEX_QUERIES, INDEX_DIM, 18, device)
+    k = INDEX_K
+    cells = {}
+    for tag, n, int8 in (("dense", INDEX_ROWS["dense"], False),
+                         ("int8", INDEX_ROWS["dense"], True),
+                         ("chunked", INDEX_ROWS["chunked"], False)):
+        out = {}
+        for side, m in (("unsharded", None), ("mesh", mesh)):
+            index = RetrievalIndex(INDEX_DIM, int8_gallery=int8, mesh=m,
+                                   device=device)
+            index.add(gallery[:n])
+            index._gallery_on_device()
+            ms = call_ms(lambda: index.query(queries, k=k), iters=5,
+                         warmup=1)
+            d, idx, _ = index.query(queries, k=k + 1)
+            out[side] = (d, idx, ms)
+            del index
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        (gd, gi, gms), (wd, wi, wms) = out["mesh"], out["unsharded"]
+        bits = bool(np.array_equal(gi, wi) and np.array_equal(gd, wd))
+        if tag == "chunked":
+            checked = same_topk(f"sharded {tag}", (gd[:, :k], gi[:, :k]),
+                                (wd[:, :k], wi[:, :k]), wd[:, k],
+                                rtol=SH_INDEX_RTOL)
+        else:
+            if not np.array_equal(gi[:, :k], wi[:, :k]):
+                fail(f"sharded {tag}: indices differ from the unsharded "
+                     "index")
+            np.testing.assert_allclose(gd, wd, rtol=SH_INDEX_RTOL,
+                                       err_msg=f"sharded {tag}")
+            checked = (INDEX_QUERIES, INDEX_QUERIES)
+        cells[tag] = {"rows": n, "mesh_ms": round(gms, 4),
+                      "unsharded_ms": round(wms, 4),
+                      "bit_equal": bits, "rows_checked": checked}
+        print(f"[p20] index {tag} at {n} rows, Q={INDEX_QUERIES} top-{k} "
+              f"({card}): one-rank mesh {gms:.3f} ms vs unsharded "
+              f"{wms:.3f} ms host to host; results bit-equal {bits}; "
+              f"(set, order) rows checked {checked}", flush=True)
+    return cells
+
+
+def mesh_cache_checks(mesh, full_root, device, card):
+    """The full-budget train sessions cached over the one-rank mesh and
+    without it: the resident q, scale, seq_len and label table and the
+    first epoch's plans bit-equal; both builds' times."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+    cfg = full_width_cfg(full_root, "p20_cache", label_num=93,
+                         device_cache=True, device_cache_gb=CACHE_GB)
+    exp = HondaExperiment(cfg, result_dir=os.path.join(full_root, "r_p20"))
+    try:
+        caches, secs = {}, {}
+        for side, m in (("unsharded", None), ("mesh", mesh)):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            caches[side] = exp.build_cache(device, mesh=m)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs[side] = time.perf_counter() - t0
+            if caches[side] is None:
+                fail(f"p20: the {side} cache build declined")
+        a, b = caches["mesh"], caches["unsharded"]
+        arrays = all(torch.equal(x, y) for x, y in
+                     zip(a.step_operands(), b.step_operands()))
+        plans = [(p["packed"], q["packed"]) for p, q in
+                 zip(a.epoch_plans(), b.epoch_plans())]
+        same_plans = (len(plans) == b.batches_per_epoch and
+                      all(np.array_equal(p, q) for p, q in plans))
+        print(f"[p20] cache of {len(exp.train_set)} full-budget sessions "
+              f"({card}): built over the one-rank mesh in "
+              f"{secs['mesh']:.2f} s, without it in {secs['unsharded']:.2f}"
+              f" s (page cache warm), {a.device_bytes} bytes resident; q, "
+              f"scale, seq_len, label table bit-equal {arrays}; "
+              f"{len(plans)} plans of the first epoch bit-equal "
+              f"{same_plans}", flush=True)
+        if not (arrays and same_plans):
+            fail("p20: the mesh cache differs from the unsharded one")
+        return secs
+    finally:
+        exp.close()
+
+
+def mesh_flagship_checks(mesh, full_root, device, card):
+    """The fused flagship step at train_multimodal_model.sh's width
+    (phase 18's configuration: ConvRTSN on 8x8x1536 maps, emb_dim 128,
+    keep_prob 0.5, 200 triplets, 5 negatives) on one full-budget batch,
+    run on the one-rank mesh and without it from the same weights and
+    draws: loss and every parameter within SH_STEP_RTOL; then the cached
+    flagship over the mesh cache and the unsharded one for two
+    SH_WINDOW-step windows: each step's loss and the parameters after
+    them within SH_STEP_RTOL.  ms a draw of each path (CUDA events around
+    3 steps; the second window's host time with a synchronise)."""
+    import torch
+    from multimodal_similarity_tpu_torch.train.cached_steps import (
+        dispatch_plan_window, make_cached_body_step)
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        multimodal_model)
+    from multimodal_similarity_tpu_torch.train.trainers._honda import (
+        HondaExperiment)
+    mcfg = full_width_cfg(full_root, "p20_mm", feat=MM_FEATS,
+                          lambda_multimodal=0.1, multimodal_epochs=0,
+                          num_negative=5, triplet_per_batch=200,
+                          label_num=93, no_joint=True, device_cache=True,
+                          device_cache_gb=CACHE_GB)
+    mexp = HondaExperiment(mcfg, modalities=MM_FEATS.split(","),
+                           result_dir=os.path.join(full_root, "r_p20_mm"))
+    lr = mcfg.learning_rate
+    cm = multimodal_model.margin_table({0: [0.5]}, torch.device(device))
+    out = {}
+    try:
+        batch = first_batch(mexp)
+        args = [torch.from_numpy(batch[k]).to(device) for k in (
+            "events", "events2", "events3", "labels", "mask")]
+
+        def model_and_step(m):
+            model = multimodal_model.build_model(
+                mcfg, torch.device(device), sensors=MM_MODALITIES[
+                    "sensors"][0], segment=MM_MODALITIES["segment"][0])
+            opt = multimodal_model.mm_optimizer(mcfg, model)
+            gen = torch.Generator(device=device).manual_seed(20)
+            return model, multimodal_model.make_mm_fused_step(
+                model, opt, mcfg, gen, mesh=m)
+
+        runs = {}
+        for side, m in (("mesh", mesh), ("unsharded", None)):
+            model, step = model_and_step(m)
+            aux = step(*args, cm, 1.0, lr)
+            runs[side] = (aux["loss"].detach().clone(), {
+                k: p.detach().clone() for k, p in model.named_parameters()})
+            runs[side] += (call_ms(lambda: step(*args, cm, 1.0, lr),
+                                   iters=3, warmup=1),)
+            del model, step
+        (gl, gp, gms), (wl, wp, wms) = runs["mesh"], runs["unsharded"]
+        rel = rel_close("p20 fused step loss", gl[None], wl[None],
+                        SH_STEP_RTOL)
+        worst = max(rel_close(f"p20 fused step {k}", gp[k], wp[k],
+                              SH_STEP_RTOL) for k in wp)
+        out["fused"] = {"mesh_ms": round(gms, 3), "unsharded_ms":
+                        round(wms, 3), "loss_rel": rel, "param_rel": worst}
+        print(f"[p20] fused flagship step on a full-budget batch "
+              f"({int(batch['num_events'])} real events, {card}): loss "
+              f"{float(gl):.6f} on the one-rank mesh vs {float(wl):.6f} "
+              f"(rel {rel:.3g}), worst parameter rel {worst:.3g} (rtol "
+              f"{SH_STEP_RTOL}); {gms:.3f} vs {wms:.3f} ms a draw",
+              flush=True)
+        del runs, args
+
+        cached = {}
+        for side, m in (("mesh", mesh), ("unsharded", None)):
+            cache = mexp.build_cache(device, mesh=m)
+            if cache is None:
+                fail(f"p20: the flagship's {side} cache declined")
+            model, step = model_and_step(m)
+            fused = make_cached_body_step(
+                lambda ev, lab, mask, lr_, step=step: step(
+                    *ev, lab, mask, cm, 1.0, lr_),
+                cache, torch.Generator(device=device).manual_seed(21))
+            # a warm window, then the timed one
+            plans = [p["packed"] for p in cache.epoch_plans()]
+            aux = dispatch_plan_window(plans[:SH_WINDOW], lr, fused=fused,
+                                       device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux += dispatch_plan_window(plans[SH_WINDOW:2 * SH_WINDOW], lr,
+                                        fused=fused, device=device)
+            losses = torch.stack([a["loss"] for a in aux])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / SH_WINDOW
+            cached[side] = (losses, {k: p.detach().clone() for k, p in
+                                     model.named_parameters()}, ms)
+            del cache, model, step, fused
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        (gl, gp, gms), (wl, wp, wms) = cached["mesh"], cached["unsharded"]
+        rel = rel_close("p20 cached window losses", gl, wl, SH_STEP_RTOL)
+        worst = max(rel_close(f"p20 cached window {k}", gp[k], wp[k],
+                              SH_STEP_RTOL) for k in wp)
+        out["cached"] = {"mesh_ms": round(gms, 3), "unsharded_ms":
+                         round(wms, 3), "loss_rel": rel, "param_rel": worst}
+        print(f"[p20] cached flagship, two {SH_WINDOW}-step windows "
+              f"({card}): losses {[round(float(v), 6) for v in gl]} on the "
+              f"one-rank mesh (rel {rel:.3g} of the unsharded cache's), "
+              f"worst parameter rel {worst:.3g}; {gms:.3f} vs {wms:.3f} ms "
+              "a draw (host, the second window)", flush=True)
+    finally:
+        mexp.close()
+    return out
+
+
+def sharded_phase(root, full_root, device="cuda"):
+    """Phase 20: a one-rank process group (NCCL on the card, as phase 19's)
+    and on its mesh the sharded retrieval index, the mesh-sharded cache of
+    the full-budget sessions and the flagship's data-parallel fused and
+    cached steps, each against its path without a mesh.  No ``csrc/``
+    kernel runs on these paths."""
+    import torch
+    import torch.distributed as dist
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+    from multimodal_similarity_tpu_torch.parallel import create_mesh
+    t0 = time.time()
+    card = card_line() if device == "cuda" else "cpu"
+    reset_launch_counts()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method=f"file://{os.path.join(root, 'p20_pg')}",
+        world_size=1, rank=0)
+    try:
+        mesh = create_mesh(1)
+        if mesh.device.type != torch.device(device).type:
+            fail(f"p20: the mesh is on {mesh.device}")
+        out = {"index": sharded_index_checks(mesh, device, card),
+               "cache_s": mesh_cache_checks(mesh, full_root, device, card),
+               "flagship": mesh_flagship_checks(mesh, full_root, device,
+                                                card)}
+    finally:
+        dist.destroy_process_group()
+    expect_launches("p20", dict(LAUNCHES), dict.fromkeys(LAUNCHES, 0))
+    print(f"[p20] phase 20 {time.time() - t0:.1f} s ({card}): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5034,8 +5304,9 @@ def main():
         counted("serving", serving_phase, full_root, ckpts, pairsim_ckpt,
                 hal_ckpt)
         cache_phase(root, full_root)
-        shutil.rmtree(full_root)
         run_control_phase(root, steady_root)
+        sharded_phase(root, full_root)
+        shutil.rmtree(full_root)
     # every Honda loader of phases 8-15 and 17 draws TSN segments: each
     # must have taken the native gather
     print(f"[native] gathers and deferrals by phase {json.dumps(gathers)}",

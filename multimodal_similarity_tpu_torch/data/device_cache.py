@@ -1,4 +1,5 @@
-"""Device-resident int8 epoch feature cache, on one device.
+"""Device-resident int8 epoch feature cache, on one device or a process
+mesh.
 
 Counterpart of the JAX package's ``data/device_cache.py``.  Disk-fed
 training sends the same event windows to the card every epoch, though at
@@ -22,8 +23,10 @@ one-time one:
 Over the ``budget_bytes`` estimate, ``build`` returns None with the JAX
 cache's notice and the trainer keeps the streaming feed.  The estimate
 counts ``max_frames`` (45) frames an event, as the reference's does, though
-the resident arrays hold ``t_eff`` frames (ROADMAP §3).  A sharded cache
-(``mesh``) is ROADMAP slice 8c.  ``COUNTS`` counts builds and gathers.
+the resident arrays hold ``t_eff`` frames (ROADMAP §3).  On a process mesh
+(``mesh``) each rank holds one shard of the sessions and gathers its own
+row block of every batch (``DeviceFeatureCache``).  ``COUNTS`` counts
+builds and gathers.
 """
 
 from __future__ import annotations
@@ -104,17 +107,22 @@ def _npy_shape(path: str) -> tuple:
 
 
 def estimate_cache_bytes(dataset: Sequence[Sequence[str]],
-                         max_frames: int = MAX_LENGTH) -> int:
+                         max_frames: int = MAX_LENGTH,
+                         n_shards: int = 1) -> int:
     """Estimated device bytes for caching every modality of ``dataset``
     (int8 frames + f32 scales at ``max_frames`` frames an event), from the
-    label pickles and the ``.npy`` headers alone.  Raises ValueError when
-    the per-frame dims differ between sessions."""
+    label pickles and the ``.npy`` headers alone.  ``n_shards`` gives
+    ``build``'s mesh layout: sessions go round-robin onto the shards and
+    every shard pads to the largest one's event count, so the estimate is
+    ``n_shards`` times that count.  Raises ValueError when the per-frame
+    dims differ between sessions."""
     num_modalities = len(dataset[0]) - 1
-    n_events = 0
+    shard_events = [0] * max(n_shards, 1)
     per_event = 0
     dims0 = None
     for i, row in enumerate(dataset):
-        n_events += len(_session_event_lengths(row[-1]))
+        shard_events[i % len(shard_events)] += len(
+            _session_event_lengths(row[-1]))
         dims = tuple(tuple(_npy_shape(row[m])[1:])
                      for m in range(num_modalities))
         if i == 0:
@@ -130,7 +138,17 @@ def estimate_cache_bytes(dataset: Sequence[Sequence[str]],
                 f"heterogeneous feature dims: session 0 has {dims0}, "
                 f"session {i} ({row[0]!r}) has {dims}; the cache (and its "
                 "HBM budget estimate) requires homogeneous per-frame dims")
-    return n_events * per_event
+    return max(shard_events) * len(shard_events) * per_event
+
+
+def _mesh_locality(mesh, n_shards: int):
+    """(local shards, multi-process, shards a process) of a mesh's "data"
+    axis.  On the port's mesh a rank is a process with one device (ROADMAP
+    D6), so shard r belongs to rank r: each rank stages and uploads its
+    own shard alone."""
+    if mesh is None:
+        return [0], False, {0: 1}
+    return [mesh.rank], n_shards > 1, dict.fromkeys(range(n_shards), 1)
 
 
 def _stage_session(feat_paths: Sequence[str],
@@ -164,25 +182,45 @@ def _stage_session(feat_paths: Sequence[str],
 
 
 class DeviceFeatureCache:
-    """Int8 event windows resident on one device, re-sampled there each
-    batch.
+    """Int8 event windows resident on the device, re-sampled there each
+    batch; on a process mesh (``mesh``), each rank holds its shard.
 
     Build with :meth:`build` (None over budget).  :meth:`epoch_plans` gives
     one epoch of host index plans and :meth:`gather` turns a plan on the
     device into a batch in the int8 feed's form (``{"q", "scale"}`` a TSN
     modality, a dense [B, ...] mean for a ``meanpool`` one), with labels
-    and mask; :meth:`epoch_batches` does both (the two-call path)."""
+    and mask; :meth:`epoch_batches` does both (the two-call path).
+
+    On a mesh of n ranks the sessions go round-robin over n shards (the
+    order of ``host_local_sessions``), shard r is rank r's, and every shard
+    pads to the largest one's event count ``shard_rows``: shard s holds the
+    global event ids ``[s shard_rows, (s + 1) shard_rows)``.  The label
+    table, the frame trim, ``shard_rows`` and the plans are the same on
+    every rank, from the label pickles alone; each rank reads, quantizes
+    and uploads the features of its own shard.  A plan is shard-aligned:
+    the batch's rows ``[s per, (s + 1) per)`` (``per`` = budget / n) are
+    events of shard s, so a rank gathers its own row block with no
+    collective on the features."""
 
     def __init__(self, *, n_seg: int, sess_per_batch: int, event_budget: int,
-                 seed: int, device,
+                 seed: int, device, mesh=None,
                  modality_modes: Optional[Sequence[str]] = None):
         self.n_seg = n_seg
         self.sess_per_batch = sess_per_batch
         self.event_budget = event_budget
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.n_shards = mesh.size if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        if event_budget % self.n_shards:
+            raise ValueError(
+                f"event_budget {event_budget} not divisible by "
+                f"{self.n_shards} mesh shards")
         self.modality_modes = modality_modes
         self.rng = np.random.RandomState(seed)
-        self._sessions: List[np.ndarray] = []  # global event ids a session
+        # per shard: the global event ids of each of its sessions
+        self._shard_sessions: List[List[np.ndarray]] = [
+            [] for _ in range(self.n_shards)]
         self._labels: List[np.ndarray] = []    # host labels a session
 
     @classmethod
@@ -194,7 +232,8 @@ class DeviceFeatureCache:
               beat=None, workers: Optional[int] = None,
               verbose: bool = True) -> Optional["DeviceFeatureCache"]:
         """Read, quantize and upload every session of ``dataset`` (rows of
-        feature paths, label path last) to ``device``.
+        feature paths, label path last) to ``device``; on a ``mesh``
+        (parallel.ProcessMesh), this rank's shard of them.
 
         ``modality_modes`` picks each modality's gather: ``"tsn"`` (the
         default) fresh TSN segment frames each batch, ``"meanpool"`` the
@@ -203,21 +242,27 @@ class DeviceFeatureCache:
         sessions (default ``min(4, usable cores)``); results drain in
         submission order, so the layout is the same for any count.
         Returns None, with a notice, when the estimate exceeds
-        ``budget_bytes``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded device cache (mesh=...) is not ported yet "
-                "(ROADMAP slice 8c)")
-        est = estimate_cache_bytes(dataset, max_frames)
-        if budget_bytes is not None and est > budget_bytes:
+        ``budget_bytes``: on a mesh, when the worst rank's share of it
+        does (every shard pads to the same rows, so every rank takes the
+        same decision), or when there are fewer sessions than shards."""
+        n_shards = mesh.size if mesh is not None else 1
+        local, multiprocess, per_process = _mesh_locality(mesh, n_shards)
+        est = estimate_cache_bytes(dataset, max_frames, n_shards)
+        est_local = est * max(per_process.values()) // n_shards
+        if budget_bytes is not None and est_local > budget_bytes:
             if verbose:
-                print(f"[device_cache] estimated {est / 1e9:.2f} GB exceeds "
-                      f"budget {budget_bytes / 1e9:.2f} GB; falling back to "
-                      "the streaming feed")
+                share = " the largest host share of" if multiprocess else ""
+                print(f"[device_cache] estimated{share} "
+                      f"{est_local / 1e9:.2f} GB exceeds budget "
+                      f"{budget_bytes / 1e9:.2f} GB; falling back to the "
+                      "streaming feed")
             return None
         if verbose:
             print(f"[device_cache] caching {len(dataset)} sessions "
-                  f"(~{est / 1e9:.2f} GB int8) on device")
+                  f"(~{est / 1e9:.2f} GB int8"
+                  + (f" global, <= {est_local / 1e9:.2f} GB per host"
+                     if multiprocess else "")
+                  + ") on device")
         num_modalities = len(dataset[0]) - 1
         if modality_modes is not None:
             if len(modality_modes) != num_modalities:
@@ -227,45 +272,66 @@ class DeviceFeatureCache:
             bad = set(modality_modes) - {"tsn", "meanpool"}
             if bad:
                 raise ValueError(f"unknown modality modes: {sorted(bad)}")
-        self = cls(n_seg=n_seg, sess_per_batch=min(sess_per_batch,
-                                                   len(dataset)),
+        self = cls(n_seg=n_seg, sess_per_batch=sess_per_batch,
                    event_budget=event_budget, seed=seed, device=device,
-                   modality_modes=modality_modes)
+                   mesh=mesh, modality_modes=modality_modes)
         self.num_modalities = num_modalities
+
+        # sessions round-robin over the shards
+        per_shard = [list(range(s, len(dataset), n_shards))
+                     for s in range(n_shards)]
+        if any(not sess for sess in per_shard):
+            if verbose:
+                print(f"[device_cache] {len(dataset)} sessions < "
+                      f"{n_shards} shards; falling back to the streaming "
+                      "feed")
+            return None
+        # a thin shard still forms one batch an epoch
+        self.sess_per_batch = min(sess_per_batch,
+                                  min(len(sess) for sess in per_shard))
 
         # the layout from the label pickles alone: labels, frame counts,
         # global event ids and the frame trim, before any feature is read
-        events = [_session_events(row[-1]) for row in dataset]
-        base = 0
-        lens = []
-        for row in dataset:
-            lab, seq_len = _session_label_metadata(
-                row[-1], transfer=True, max_frames=max_frames)
-            self._sessions.append(np.arange(base, base + lab.shape[0],
-                                            dtype=np.int32))
-            self._labels.append(lab)
-            lens.append(seq_len)
-            base += lab.shape[0]
-        self.shard_rows = base
-        seq_len = np.concatenate(lens)
-        t_eff = max(n_seg, int(seq_len.max()))
+        meta = [_session_label_metadata(row[-1], transfer=True,
+                                        max_frames=max_frames)
+                for row in dataset]
+        counts = [sum(meta[i][0].shape[0] for i in sess)
+                  for sess in per_shard]
+        n_max = max(counts)
+        self.shard_rows = n_max
+        self.label_table = np.zeros(n_shards * n_max, np.int32)
+        for s, sess in enumerate(per_shard):
+            base = s * n_max
+            for i in sess:
+                lab = meta[i][0]
+                ids = np.arange(base, base + lab.shape[0], dtype=np.int32)
+                self._shard_sessions[s].append(ids)
+                self._labels.append(lab)
+                self.label_table[ids] = lab
+                base += lab.shape[0]
+        t_eff = max(n_seg, max(int(m[1].max()) for m in meta))
         self.max_frames = t_eff
-        self.label_table = np.concatenate(self._labels)
 
+        # this rank's shard: its sessions' windows, padded to n_max rows
+        # (padding frames zero with scale one, seq_len n_seg)
+        mine = per_shard[local[0]]
+        seq_len = np.concatenate(
+            [meta[i][1] for i in mine]
+            + [np.full(n_max - counts[local[0]], n_seg, np.int32)])
         dims = [tuple(_npy_shape(dataset[0][m])[1:])
                 for m in range(num_modalities)]
         self.q, self.scale = [], []
         for d in dims:
-            shape = (base, t_eff) + d
-            self.q.append(torch.empty(shape, dtype=torch.int8,
+            shape = (n_max, t_eff) + d
+            self.q.append(torch.zeros(shape, dtype=torch.int8,
                                       device=self.device))
-            self.scale.append(torch.empty(_scale_shape(shape),
-                                          dtype=torch.float32,
-                                          device=self.device))
+            self.scale.append(torch.ones(_scale_shape(shape),
+                                         dtype=torch.float32,
+                                         device=self.device))
 
-        starts = np.cumsum([0] + [len(e) for e in events])
-        tasks = [(row[:-1], events[i], lens[i], t_eff)
-                 for i, row in enumerate(dataset)]
+        starts = np.cumsum([0] + [meta[i][0].shape[0] for i in mine])
+        tasks = [(dataset[i][:-1], _session_events(dataset[i][-1]),
+                  meta[i][1], t_eff) for i in mine]
         if workers is None:
             try:  # the cores this process may run on
                 avail = len(os.sched_getaffinity(0))
@@ -273,8 +339,8 @@ class DeviceFeatureCache:
                 avail = os.cpu_count() or 1
             workers = min(4, avail)
 
-        def place(i, mods):
-            lo, hi = starts[i], starts[i + 1]
+        def place(j, mods):
+            lo, hi = starts[j], starts[j + 1]
             for m, (q, scale) in enumerate(mods):
                 self.q[m][lo:hi].copy_(q)
                 self.scale[m][lo:hi].copy_(scale)
@@ -287,21 +353,22 @@ class DeviceFeatureCache:
             try:
                 # drained in submission order: the first failing session
                 # raises here, and the beats follow the session order
-                for i, mods in enumerate(pool.map(
+                for j, mods in enumerate(pool.map(
                         lambda t: _stage_session(*t), tasks)):
-                    place(i, mods)
+                    place(j, mods)
             except BaseException:
                 pool.shutdown(wait=False, cancel_futures=True)
                 raise
             pool.shutdown(wait=True)
         else:
-            for i, task in enumerate(tasks):
-                place(i, _stage_session(*task))
+            for j, task in enumerate(tasks):
+                place(j, _stage_session(*task))
 
         self.seq_len = torch.from_numpy(seq_len).to(self.device)
-        # the label table is resident too: a batch's labels and mask derive
-        # on the device from its index plan
+        # the whole label table is resident on every rank: a batch's labels
+        # and mask derive on the device from its index plan
         self.label_dev = torch.from_numpy(self.label_table).to(self.device)
+        # this rank's resident bytes
         self.device_bytes = int(sum(
             t.numel() * t.element_size()
             for t in (*self.q, *self.scale, self.seq_len, self.label_dev)))
@@ -312,57 +379,81 @@ class DeviceFeatureCache:
 
     @property
     def batches_per_epoch(self) -> int:
-        return len(self._sessions) // self.sess_per_batch
+        return min(len(sess) // self.sess_per_batch
+                   for sess in self._shard_sessions)
+
+    @property
+    def plan_rows(self) -> int:
+        """Entries of a packed plan: each shard's event ids and its
+        real-event count."""
+        return self.event_budget + self.n_shards
 
     def _plan_epoch(self):
-        """One epoch of (event ids, labels, mask) a batch: the session
-        loader's semantics (shuffle the session order, group
-        ``sess_per_batch`` sessions, permute the group's events, cut to
-        the budget or pad up to it with row 0, masked out)."""
+        """One epoch of plans, a list of per-shard (global event ids,
+        labels, mask) a batch: the session loader's semantics in each shard
+        (shuffle the shard's session order, group ``sess_per_batch``
+        sessions, permute the group's events, cut to the shard's share of
+        the budget or pad up to it with the shard's first row, masked
+        out)."""
         bpe = self.batches_per_epoch
-        order = self.rng.permutation(len(self._sessions))
+        per = self.event_budget // self.n_shards
+        groups = []
+        for sess in self._shard_sessions:
+            order = self.rng.permutation(len(sess))
+            groups.append([
+                [sess[i] for i in order[g * self.sess_per_batch:
+                                        (g + 1) * self.sess_per_batch]]
+                for g in range(bpe)])
         plans = []
         for b in range(bpe):
-            idx = np.concatenate([
-                self._sessions[i] for i in
-                order[b * self.sess_per_batch:(b + 1) * self.sess_per_batch]])
-            n = idx.shape[0]
-            if n > self.event_budget:
-                take = self.rng.permutation(n)[:self.event_budget]
-            else:
-                take = self.rng.permutation(n)
-            idx = idx[take]
-            labels = self.label_table[idx]
-            mask = np.ones(idx.shape[0], np.float32)
-            pad = self.event_budget - idx.shape[0]
-            if pad:
-                idx = np.concatenate([idx, np.zeros(pad, np.int32)])
-                labels = np.concatenate([labels, np.zeros(pad, np.int32)])
-                mask = np.concatenate([mask, np.zeros(pad, np.float32)])
-            plans.append((idx, labels, mask))
+            rows = []
+            for s in range(self.n_shards):
+                idx = np.concatenate(groups[s][b])
+                n = idx.shape[0]
+                take = (self.rng.permutation(n)[:per] if n > per
+                        else self.rng.permutation(n))
+                idx = idx[take]
+                labels = self.label_table[idx]
+                mask = np.ones(idx.shape[0], np.float32)
+                pad = per - idx.shape[0]
+                if pad:
+                    idx = np.concatenate(
+                        [idx, np.full(pad, s * self.shard_rows, np.int32)])
+                    labels = np.concatenate([labels,
+                                             np.zeros(pad, np.int32)])
+                    mask = np.concatenate([mask, np.zeros(pad, np.float32)])
+                rows.append((idx, labels, mask))
+            plans.append(rows)
         return plans
 
     def epoch_plans(self):
-        """One epoch of host plans: ``packed`` [budget + 1] int32 (the event
-        ids, then the real-event count) is a batch's only upload;
+        """One epoch of host plans: ``packed`` [budget + shards] int32 (each
+        shard's shard-local event ids, then its real-event count; on one
+        device the ids, then the count) is a batch's only upload;
         ``labels_host`` / ``mask_host`` are its labels and mask in gathered
         order, for a sampling policy that runs on the plan."""
-        for idx, labels, mask in self._plan_epoch():
-            yield {"packed": np.concatenate(
-                       [idx, [int(mask.sum())]]).astype(np.int32),
-                   "labels_host": labels, "mask_host": mask,
-                   "num_events": int(mask.sum())}
+        for rows in self._plan_epoch():
+            mask = np.concatenate([r[2] for r in rows])
+            yield {"packed": np.concatenate([
+                       np.concatenate([r[0] % self.shard_rows,
+                                       [int(r[2].sum())]])
+                       for r in rows]).astype(np.int32),
+                   "labels_host": np.concatenate([r[1] for r in rows]),
+                   "mask_host": mask, "num_events": int(mask.sum()),
+                   "global_indices": np.concatenate([r[0] for r in rows])}
 
     def put_plans(self, args):
-        """The plan operands as they are: on one device nothing is sharded
-        (the JAX cache's multi-process placement is slice 8c).  Kept for
-        the JAX cache's interface; only the tests call it."""
+        """The plan operands as they are: every rank uploads the whole
+        (KB-sized) plan itself.  Kept for the JAX cache's interface; only
+        the tests call it."""
         return tuple(args)
 
     def step_operands(self):
         """The resident arrays a gather reads: (seq_len, label table, then
-        q and scale of each modality), in the JAX cache's order.  Only the
-        tests call it, to hold the resident arrays to the JAX cache's."""
+        q and scale of each modality), in the JAX cache's order; on a mesh,
+        this rank's rows of all but the label table, which every rank holds
+        whole.  Only the tests call it, to hold the resident arrays to the
+        JAX cache's."""
         mods = []
         for m in range(self.num_modalities):
             mods.extend([self.q[m], self.scale[m]])
@@ -373,43 +464,57 @@ class DeviceFeatureCache:
     def gather(self, packed: torch.Tensor, generator: torch.Generator,
                rows: Optional[torch.Tensor] = None):
         """One batch from a plan on the device: (one output a modality,
-        labels [B] int32, mask [B] f32).  ``packed`` is a plan's [budget +
-        1] ids and count; ``generator`` draws each TSN modality's uniforms
-        in modality order, [budget, n_seg] each.  ``rows`` (optional)
-        takes those rows of the batch: the features of the others are
-        never read."""
+        labels [B] int32, mask [B] f32).  ``packed`` is a plan's
+        ``plan_rows`` entries; ``generator`` draws each TSN modality's
+        uniforms in modality order, [budget, n_seg] each.  On a mesh the
+        outputs are this rank's row block of the batch, the labels and
+        mask the whole batch's.  ``rows`` (optional) takes those rows of
+        the batch: on one device the features of the others are never
+        read; on a mesh each rank receives its contiguous share of them,
+        routed from the ranks that hold them in one all-to-all a tensor
+        (parallel/data_parallel.py ``gather_rows``), with their labels and
+        mask."""
         COUNTS["gather"] += 1
-        indices = packed[:-1].long()
-        budget = indices.shape[0]
-        mask = (torch.arange(budget, device=indices.device)
-                < packed[-1]).to(torch.float32)
-        labels = self.label_dev[indices] * mask.to(torch.int32)
+        n, budget = self.n_shards, self.event_budget
+        per = budget // n
+        plan = packed.view(n, per + 1)
+        ids = plan[:, :-1].long()
+        valid = (torch.arange(per, device=ids.device)[None, :]
+                 < plan[:, -1:]).to(torch.float32)
+        base = torch.arange(n, device=ids.device)[:, None] * self.shard_rows
+        labels = (self.label_dev[ids + base]
+                  * valid.to(torch.int32)).reshape(-1)
+        mask = valid.reshape(-1)
+        indices = ids[self.rank]
         lens = self.seq_len[indices]
+        sel = rows if self.mesh is None else None
+        block = slice(self.rank * per, (self.rank + 1) * per)
         t = self.max_frames
         modes = self.modality_modes or ("tsn",) * self.num_modalities
         out = []
         for m, mode in enumerate(modes):
             q, scale = self.q[m], self.scale[m]
             if mode == "meanpool":
-                idx = indices if rows is None else indices[rows]
-                n_len = lens if rows is None else lens[rows]
+                idx = indices if sel is None else indices[sel]
+                n_len = lens if sel is None else lens[sel]
                 # f32 accumulation: the int8 storage is the only
                 # approximation of the streamed f32 mean
                 x = (q.index_select(0, idx).to(torch.float32)
                      * scale.index_select(0, idx))
                 tail = (1,) * (x.ndim - 2)
-                valid = (torch.arange(t, device=idx.device)[None, :]
-                         < n_len[:, None]).to(torch.float32)
+                frames = (torch.arange(t, device=idx.device)[None, :]
+                          < n_len[:, None]).to(torch.float32)
                 denom = torch.clamp(n_len.to(torch.float32), min=1.0)
-                out.append((x * valid.reshape(valid.shape + tail)).sum(1)
+                out.append((x * frames.reshape(frames.shape + tail)).sum(1)
                            / denom.reshape((-1,) + tail))
                 continue
             # every TSN modality draws its own offsets, as the streamed
-            # loader's prepare calls do
-            offs = tsn_sample_offsets(generator, lens, self.n_seg)
+            # loader's prepare calls do; drawn for the whole batch
+            offs = tsn_sample_offsets(generator, lens, self.n_seg,
+                                      rows=(budget, block))
             flat = indices[:, None] * t + offs
-            if rows is not None:
-                flat = flat[rows]
+            if sel is not None:
+                flat = flat[sel]
             flat = flat.reshape(-1)
             out.append({
                 "q": q.reshape((-1,) + q.shape[2:]).index_select(
@@ -417,14 +522,20 @@ class DeviceFeatureCache:
                 "scale": scale.reshape((-1,) + scale.shape[2:]).index_select(
                     0, flat).reshape((-1, self.n_seg) + scale.shape[2:])})
         if rows is not None:
+            if self.mesh is not None:
+                from multimodal_similarity_tpu_torch.parallel.data_parallel \
+                    import gather_rows, share
+                out = [gather_rows(o, rows, self.mesh, per) for o in out]
+                rows = rows[share(rows.shape[0], self.mesh)]
             labels, mask = labels[rows], mask[rows]
         return tuple(out), labels, mask
 
     def epoch_batches(self, generator: torch.Generator):
         """One epoch of gathered batches (the two-call path): each plan
         uploaded, then gathered.  A batch holds ``events`` (and
-        ``events2``, ``events3`` ...), ``labels``, ``mask`` on the device,
-        and the plan's ``labels_host``, ``mask_host``, ``num_events`` and
+        ``events2``, ``events3`` ...; on a mesh this rank's row block),
+        ``labels``, ``mask`` on the device, and the plan's
+        ``labels_host``, ``mask_host``, ``num_events`` and
         ``global_indices``."""
         for plan in self.epoch_plans():
             packed = torch.from_numpy(plan["packed"]).to(self.device)
@@ -433,7 +544,7 @@ class DeviceFeatureCache:
                      "labels_host": plan["labels_host"],
                      "mask_host": plan["mask_host"],
                      "num_events": plan["num_events"],
-                     "global_indices": plan["packed"][:-1]}
+                     "global_indices": plan["global_indices"]}
             for m, g in enumerate(gathered):
                 batch["events" if m == 0 else f"events{m + 1}"] = g
             yield batch

@@ -15,7 +15,7 @@ frame index of each segment as a tensor, from uniforms drawn by
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,15 +98,23 @@ def draw_tsn_uniforms(generator: torch.Generator, b: int, n_seg: int,
 
 
 def tsn_sample_offsets(generator: torch.Generator, seq_len: torch.Tensor,
-                       n_seg: int) -> torch.Tensor:
+                       n_seg: int,
+                       rows: Optional[Tuple[int, slice]] = None
+                       ) -> torch.Tensor:
     """Per-event random TSN offsets on the device.
 
     seq_len -- [B] true frame counts; returns [B, n_seg] int64 frame indices
     (segment start + the uniform's share of the segment, truncated),
     clamped to the last frame: the host sampler's scheme for seq_len >=
-    n_seg."""
-    u = draw_tsn_uniforms(generator, seq_len.shape[0], n_seg,
-                          seq_len.device)
+    n_seg.  ``rows`` = (b, sl): ``seq_len`` holds rows ``sl`` of a batch of
+    ``b`` rows, and the uniforms are drawn for the whole batch and those
+    rows kept (a data-parallel rank draws what one device would)."""
+    if rows is None:
+        u = draw_tsn_uniforms(generator, seq_len.shape[0], n_seg,
+                              seq_len.device)
+    else:
+        u = draw_tsn_uniforms(generator, rows[0], n_seg,
+                              seq_len.device)[rows[1]]
     avg = torch.clamp(seq_len // n_seg, min=1)
     base = torch.arange(n_seg, device=seq_len.device)[None, :] * avg[:, None]
     offs = (u * avg[:, None].to(torch.float32)).to(torch.int32)

@@ -14,7 +14,8 @@ reference.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,18 +36,45 @@ def dense(in_features: int, out_features: int,
 
 class Dropout(nn.Module):
     """Inverted dropout drawing its mask from an explicit generator, which
-    must live on the inputs' device (``None``: the global generator)."""
+    must live on the inputs' device (``None``: the global generator).
+
+    Inside ``global_rows(b, rows)`` the forward runs on rows ``rows`` of a
+    batch of ``b`` rows (one rank's share of a data-parallel batch): each
+    mask is drawn for the whole batch and this share's rows kept, so the
+    ranks together draw what one device would."""
+
+    # (batch rows, this share's rows) while ``global_rows`` is open
+    batch_rows: Optional[Tuple[int, slice]] = None
 
     def __init__(self, rate: float, generator: Generator = None):
         super().__init__()
         self.rate = rate
         self.generator = generator
 
+    @staticmethod
+    @contextlib.contextmanager
+    def global_rows(b: int, rows: slice):
+        Dropout.batch_rows = (b, rows)
+        try:
+            yield
+        finally:
+            Dropout.batch_rows = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
+        shape, keep_rows = x.shape, None
+        if Dropout.batch_rows is not None:
+            # a batch row is ``per`` leading rows of x here (a flattened
+            # [rows x segments] layer keeps a row's segments together)
+            b, rows = Dropout.batch_rows
+            per = x.shape[0] // max(rows.stop - rows.start, 1)
+            shape = (b * per,) + x.shape[1:]
+            keep_rows = slice(rows.start * per, rows.stop * per)
+        keep = torch.rand(shape, generator=self.generator,
                           device=x.device) >= self.rate
+        if keep_rows is not None:
+            keep = keep[keep_rows]
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

@@ -1,7 +1,9 @@
 """Data parallelism on ``torch.distributed``: the process mesh, the
 multi-process bootstrap and feeding, the batch-hard and lifted rings and
-the data-parallel triplet step (ROADMAP slice 8c-i).  Sharded evaluation,
-tensor parallelism and the pipelined backbone are slice 8c-ii."""
+the data-parallel triplet step (ROADMAP slice 8c-i), and sharded-gallery
+retrieval (slice 8c-ii; the mesh-sharded device cache and the flagship's
+data-parallel step live beside their single-device versions).  Tensor
+parallelism is slice 8c-iii; the pipelined backbone is slice 9."""
 
 from multimodal_similarity_tpu_torch.parallel.data_parallel import (
     make_dp_triplet_step,
@@ -28,6 +30,10 @@ from multimodal_similarity_tpu_torch.parallel.ring_mining import (
     make_ring_batch_hard_stats_grad,
     ring_batch_hard_stats,
 )
+from multimodal_similarity_tpu_torch.parallel.sharded_eval import (
+    sharded_retrieval_topk,
+    sharded_retrieval_topk_quantized,
+)
 
 __all__ = [
     "ProcessMesh",
@@ -36,6 +42,8 @@ __all__ = [
     "shard_batch",
     "replicate",
     "make_dp_triplet_step",
+    "sharded_retrieval_topk",
+    "sharded_retrieval_topk_quantized",
     "ring_batch_hard_stats",
     "make_ring_batch_hard_stats_grad",
     "make_ring_batch_hard_loss",

@@ -55,10 +55,12 @@ def sum_gradients(model: nn.Module, mesh: ProcessMesh) -> None:
 def backward_once(loss: torch.Tensor, reg: Optional[torch.Tensor],
                   mesh: ProcessMesh) -> None:
     """``loss`` (each rank's part) backward, with the regulariser ``reg``
-    (the same value on every rank) in rank 0's graph alone, so the summed
-    gradients count it once."""
-    if reg is not None and mesh.rank == 0:
-        loss = loss + reg
+    (the same value on every rank) counted in rank 0's graph alone, so the
+    summed gradients count it once.  The other ranks take it times zero:
+    every rank then holds a gradient for the same parameters (those of
+    the loss and of the regulariser), which ``sum_gradients`` needs."""
+    if reg is not None:
+        loss = loss + (reg if mesh.rank == 0 else 0.0 * reg)
     loss.backward()
 
 
@@ -85,6 +87,14 @@ class _GatherShares(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad[ctx.rows], None, None
+
+
+def gather_shares(part: torch.Tensor, n: int, mesh: ProcessMesh
+                  ) -> torch.Tensor:
+    """Every rank's ``share`` of ``n`` rows concatenated, on every rank,
+    with a gradient for this rank's rows (the global loss is computed on
+    every rank from the gathered rows)."""
+    return _GatherShares.apply(part, n, mesh)
 
 
 def gather_rows(events, rows: torch.Tensor, mesh: ProcessMesh, m: int):
@@ -160,7 +170,7 @@ def make_dp_triplet_step(
                                                   m)))
         if normalized:
             part = l2_normalize(part)
-        tri_emb = _GatherShares.apply(part, tri_idx.shape[0], mesh)
+        tri_emb = gather_shares(part, tri_idx.shape[0], mesh)
         t = mined.anchor.shape[0]
         metric_loss = triplet_loss_masked(
             tri_emb[:t], tri_emb[t:2 * t], tri_emb[2 * t:], mined.mask,

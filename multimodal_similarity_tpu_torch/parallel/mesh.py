@@ -7,8 +7,10 @@ port's mesh is the process group itself (ROADMAP deviation D6): a
 :class:`ProcessMesh` names the world size, this rank, the group and the
 rank's device.  Each rank holds the contiguous rows ``[r m, (r + 1) m)`` of
 a global batch of ``n m`` rows, which is how the JAX ``shard_batch`` places
-a batch over a 1-D mesh.  There is no multi-axis mesh: tensor parallelism
-is not ported (ROADMAP slice 8c-ii).
+a batch over a 1-D mesh.  On it run the rings and the data-parallel steps
+(slice 8c-i), the sharded retrieval index, the sharded device cache and
+the flagship's data-parallel step (slice 8c-ii).  There is no multi-axis
+mesh: tensor parallelism is slice 8c-iii.
 """
 
 from __future__ import annotations

@@ -87,9 +87,10 @@ class GlobalRows(NamedTuple):
     """One process's rows of a global array: ``local`` holds rows
     ``[offset, offset + len(local))`` of a global axis of
     ``global_rows``.  The port's mesh has no global-array type, so this
-    metadata is all of it; no trainer of the port reads it yet (the
-    data-parallel step gathers what it needs itself), only the tests
-    do."""
+    metadata is all of it.  The sharded top-k
+    (parallel/sharded_eval.py) takes one as a gallery whose size it
+    checks; no trainer of the port reads it (the data-parallel step
+    gathers what it needs itself)."""
 
     local: Any
     offset: int

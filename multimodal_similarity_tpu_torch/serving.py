@@ -11,8 +11,12 @@ for an int8 gallery.  Indexes persist with ``save`` / ``load`` in the JAX
 package's format (the same files, byte for byte), so an index written by
 either package serves in the other.
 
-Both classes run on ``cuda`` unless the caller passes ``device="cpu"``.  A
-gallery sharded over several devices (``mesh=``) is slice 8c-ii of the port.
+Both classes run on ``cuda`` unless the caller passes ``device="cpu"``.
+``RetrievalIndex(mesh=...)`` shards the gallery over a process mesh
+(parallel/mesh.py, one process a device): the gallery is padded to a
+multiple of the world size, each rank uploads only its own rows, and a
+query merges every rank's candidates (parallel/sharded_eval.py), so every
+rank returns the same answer.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from multimodal_similarity_tpu_torch.data.device_feed import (
 from multimodal_similarity_tpu_torch.ops.chunked_topk import (
     chunked_topk, chunked_topk_quantized, ieee_f32, smallest_k)
 from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
+from multimodal_similarity_tpu_torch.parallel.sharded_eval import (
+    sharded_retrieval_topk, sharded_retrieval_topk_quantized)
 from multimodal_similarity_tpu_torch.train.steps import (
     embed_in_chunks, make_embed_fn)
 
@@ -86,7 +92,10 @@ class EmbeddingService:
 
 
 class RetrievalIndex:
-    """Gallery of embeddings with exact top-k search on one device.
+    """Gallery of embeddings with exact top-k search, on one device or
+    sharded over a process mesh (``mesh``, a parallel.ProcessMesh: each
+    rank holds its contiguous block of the gallery, padded to a multiple
+    of the world size, on the rank's device).
 
     ``int8_gallery=True`` keeps rows as int8 with a per-row max-abs scale
     (g = s * qg) and their exact squared norms: a quarter of the f32
@@ -98,11 +107,13 @@ class RetrievalIndex:
     def __init__(self, emb_dim: int, metric: str = "euclidean",
                  mesh=None, gallery_chunk: int = 65536,
                  int8_gallery: bool = False, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a gallery sharded over a mesh is slice 8c-ii of the port "
-                "(parallel/sharded_eval.py); pass mesh=None")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
+        if mesh is not None and self.device.type != mesh.device.type:
+            raise ValueError(f"the mesh's collectives run on "
+                             f"{mesh.device.type}; the index's device is "
+                             f"{self.device}")
         self.emb_dim = emb_dim
         self.metric = metric
         self.int8_gallery = int8_gallery
@@ -219,7 +230,9 @@ class RetrievalIndex:
              device=None) -> "RetrievalIndex":
         """An index saved by either package, its arrays opened as mmaps;
         it serves the saved instance's top-k without re-embedding (int8
-        artifacts upload verbatim)."""
+        artifacts upload verbatim).  ``mesh`` shards it at load time, each
+        rank reading only its own rows: an index saved on one device
+        serves sharded, and the reverse."""
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         if manifest.get("format") != "msim-retrieval-index":
@@ -250,16 +263,37 @@ class RetrievalIndex:
         # read-only mmaps, and a CPU index must not alias the caller's rows
         return torch.from_numpy(np.array(arr)).to(self.device)
 
+    def _rank_rows(self, arr, fill) -> np.ndarray:
+        """This rank's block of ``arr`` padded with rows of ``fill`` to a
+        multiple of the world size: only the block's rows are read (a
+        loaded mmap stays unread elsewhere)."""
+        rows = self.mesh.rows(len(self) + (-len(self)) % self.mesh.size)
+        real = np.asarray(arr[rows.start:min(rows.stop, len(self))])
+        pad = (rows.stop - rows.start) - real.shape[0]
+        if pad:
+            real = np.concatenate(
+                [real, np.full((pad,) + real.shape[1:], fill, real.dtype)])
+        return real
+
     def _gallery_on_device(self):
         if self._device_gallery is None:
             if self.int8_gallery:
                 qg, scale, gsq = (self._quant if self._quant is not None
                                   else self._quantize_rows(
                                       self._gallery_host()))
-                self._device_gallery = (
-                    self._upload(qg),
-                    self._upload(np.asarray(scale, np.float32).reshape(-1)),
-                    self._upload(np.asarray(gsq, np.float32)))
+                scale = np.asarray(scale, np.float32).reshape(-1)
+                gsq = np.asarray(gsq, np.float32)
+                if self.mesh is not None:
+                    # padding rows: zero rows of scale 1 whose squared norm
+                    # 1e30 keeps them out of every local top-k
+                    qg, scale, gsq = (self._rank_rows(qg, 0),
+                                      self._rank_rows(scale, 1.0),
+                                      self._rank_rows(gsq, 1e30))
+                self._device_gallery = tuple(
+                    self._upload(a) for a in (qg, scale, gsq))
+            elif self.mesh is not None:
+                self._device_gallery = self._upload(
+                    self._rank_rows(self._gallery_host(), 1e15))
             else:
                 self._device_gallery = self._upload(self._gallery_host())
         return self._device_gallery
@@ -268,6 +302,15 @@ class RetrievalIndex:
         """(dists [Q, k], indices [Q, k]) of the queries ``q`` on the
         device, left there."""
         gallery = self._gallery_on_device()
+        if self.mesh is not None:
+            if self.int8_gallery:
+                qg, scale, gsq = gallery
+                return sharded_retrieval_topk_quantized(
+                    self.mesh, q, qg, scale, gsq, k=k, metric=self.metric,
+                    chunk=min(self.gallery_chunk, max(4096, qg.shape[0])))
+            return sharded_retrieval_topk(self.mesh, q, gallery, k=k,
+                                          metric=self.metric,
+                                          chunk=self.gallery_chunk)
         if self.int8_gallery:
             qg, scale, gsq = gallery
             return chunked_topk_quantized(
@@ -285,7 +328,9 @@ class RetrievalIndex:
         """-> (dists [Q, k], indices [Q, k], metadata nested list),
         ascending, the lowest gallery index first among equal distances; k
         is clamped to the gallery's size.  A single 1-D query vector is
-        taken as Q=1."""
+        taken as Q=1.  On a mesh every rank must query, with the same
+        queries, and every rank gets the same answer; a padding row's
+        index (never returned while k is clamped) would map to None."""
         if not len(self):
             raise ValueError("empty gallery")
         queries = np.asarray(queries, np.float32)

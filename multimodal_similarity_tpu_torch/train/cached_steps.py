@@ -8,6 +8,10 @@ upload.  Each step draws the gather's uniforms first, modality by
 modality, then its own mining and dropout draws, the order of the JAX
 steps' key splits.
 
+On a process mesh (a cache built over one) each rank gathers its own row
+block of the batch and the step is the data-parallel one: the semi-hard
+step of parallel/data_parallel.py, or the trainer's own step on its mesh.
+
 ``--steps_per_dispatch`` K > 1 (``dispatch_plan_window``): the K fused
 steps of a window are issued back to back, each after its plan's upload,
 with no host synchronisation between them; their scalars stay on the
@@ -25,6 +29,8 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
+from multimodal_similarity_tpu_torch.parallel.data_parallel import (
+    make_dp_triplet_step)
 from multimodal_similarity_tpu_torch.train.steps import (
     make_triplet_train_step)
 
@@ -40,11 +46,16 @@ def make_cached_triplet_step(model, optimizer, cache, *,
     """The fused semi-hard step over ``cache``: step(packed, learning_rate)
     -> device scalars, ``packed`` a plan of ``cache.epoch_plans()`` on the
     device.  The gather draws from ``gather_generator``, the miner from
-    ``mine_generator``."""
-    triplet_step = make_triplet_train_step(
-        model, optimizer, triplet_per_batch=triplet_per_batch, alpha=alpha,
-        num_negative=num_negative, metric=metric, normalized=normalized,
-        lambda_l2=lambda_l2, generator=mine_generator)
+    ``mine_generator``.  Over a cache on a process mesh the step is
+    ``make_dp_triplet_step`` on the rank's row block, with the whole
+    batch's labels and mask."""
+    kw = dict(triplet_per_batch=triplet_per_batch, alpha=alpha,
+              num_negative=num_negative, metric=metric,
+              normalized=normalized, lambda_l2=lambda_l2,
+              generator=mine_generator)
+    triplet_step = (make_triplet_train_step(model, optimizer, **kw)
+                    if cache.mesh is None else
+                    make_dp_triplet_step(model, optimizer, cache.mesh, **kw))
 
     def step(packed: torch.Tensor, learning_rate: float):
         gathered, labels, mask = cache.gather(packed, gather_generator)

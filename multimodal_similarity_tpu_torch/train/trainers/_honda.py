@@ -68,6 +68,7 @@ class HondaExperiment:
         then loads only this rank's sessions (``host_local_sessions``) with
         the global lockstep batch count, each epoch truncated to it.
         ``loader_seed`` seeds the loader (default ``cfg.seed``)."""
+        self.mesh = mesh
         self._pid, self._pcount = ((mesh.rank, mesh.size) if mesh is not None
                                    else (0, 1))
         if self._pid > 0:
@@ -177,29 +178,47 @@ class HondaExperiment:
     def build_cache(self, device, modality_modes=None, mesh=None
                     ) -> Optional[DeviceFeatureCache]:
         """``--device_cache``: this experiment's train windows (every
-        modality) on ``device`` as int8, built directly on one device, or
-        None when the flag is off or the estimate exceeds
-        ``--device_cache_gb`` (the trainer then streams).  A built cache
-        sets ``batch_per_epoch`` to its plan's."""
+        modality) on ``device`` as int8, or None when the flag is off or
+        the estimate exceeds ``--device_cache_gb`` (the trainer then
+        streams).  A built cache sets ``batch_per_epoch`` to its plan's.
+
+        On a process mesh the cache is built over it: ``mesh``, or without
+        one the experiment's own mesh of two or more ranks, each rank
+        holding its shard; the budget is rounded up to a multiple of the
+        ranks.  Under ``--multihost`` (a session-sharded experiment) the
+        caller passes its mesh; the cache plans from the full session list
+        with the global budget (``event_budget`` x processes).  On a mesh a
+        declined build streams: the JAX trainer's retry of an unsharded
+        cache on one host's devices has no counterpart when a rank is a
+        process (ROADMAP D6)."""
         cfg = self.cfg
         if not cfg.device_cache:
             return None
         if cfg.bf16_features:
             raise ValueError("--device_cache stores int8; it excludes "
                              "--bf16_features")
-        if mesh is not None or self._pcount > 1:
-            raise NotImplementedError(
-                "--device_cache on a mesh is not ported yet (ROADMAP slice "
-                "8c-ii)")
+        budget = self.event_budget
+        if self.lockstep is not None:
+            if mesh is None:
+                raise ValueError(
+                    "--device_cache under --multihost needs the trainer's "
+                    "global mesh passed to build_cache")
+            budget = self.event_budget * self._pcount
+        else:
+            mesh = mesh if mesh is not None else self.mesh
+            if mesh is not None:
+                budget = -(-budget // mesh.size) * mesh.size
         cache = DeviceFeatureCache.build(
             self.train_set, n_seg=cfg.num_seg,
-            sess_per_batch=cfg.sess_per_batch,
-            event_budget=self.event_budget, seed=cfg.seed, device=device,
+            sess_per_batch=cfg.sess_per_batch, event_budget=budget,
+            seed=cfg.seed, device=device, mesh=mesh,
             budget_bytes=cache_budget_bytes(cfg.device_cache_gb),
             modality_modes=modality_modes, beat=self.control.beat_fn,
             verbose=not cfg.silent_mode)
         if cache is not None:
             self.batch_per_epoch = cache.batches_per_epoch
+            if self.lockstep is None:
+                self.event_budget = budget
             if cfg.steps_per_dispatch > 1:
                 notice_window_shortfall(cache, cfg.steps_per_dispatch,
                                         cfg.name, cfg.silent_mode)

@@ -34,7 +34,9 @@ checkpoints and the projector files (ROADMAP D6).
 With --device_cache (``facenet`` only, as in JAX) the train windows stay on
 the device as int8 (data/device_cache.py) and a step is one plan upload and
 one fused gather + mine + train (train/cached_steps.py); --steps_per_dispatch
-K issues K such steps back to back.
+K runs K such steps back to back.  On more than one process the cache is
+sharded over the ranks (under --multihost planned from the full session
+list with the global budget) and each rank gathers its own row block.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model --DATA_ROOT <dir> --triplet_select facenet ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
@@ -248,7 +250,7 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
 
     # --device_cache: the train windows stay on the device; a step is one
     # plan upload and one fused gather + mine + train (None: stream)
-    cache = exp.build_cache(device)
+    cache = exp.build_cache(device, mesh=mesh)
     cached = None if cache is None else (cache, make_cached_triplet_step(
         model, optimizer, cache, triplet_per_batch=cfg.triplet_per_batch,
         alpha=cfg.alpha, num_negative=cfg.num_negative, metric=cfg.metric,

@@ -10,8 +10,10 @@ lifted-structured loss (ops/kernels/lifted.py; base_model_lifted.py).  Adam
 balanced batch and trains on its contiguous rows of it; the loss rides the
 f32 ring (parallel/ring_mining.py, parallel/ring_lifted.py) and the ranks'
 gradients are summed (ROADMAP D6); process 0 writes the checkpoints.
---multihost raises (the JAX trainer has no multi-process path; D6), and so
-does --device_cache on more than one process (slice 8c-ii).  Streamed, the
+--multihost raises (the JAX trainer has no multi-process path; D6).
+With --device_cache on more than one process, the cache is sharded over
+the ranks (data/device_cache.py): each rank gathers its own row block and
+the balanced rows reach their ranks in one all-to-all.  Streamed, the
 balanced selection, its row gather, the --bf16_features cast or
 --int8_features quantizing and the upload run on the feed thread, two
 batches ahead (data/device_feed.py).  With --device_cache the train
@@ -84,12 +86,12 @@ def _check_supported(cfg: TrainConfig, trainer: str, no_cache: bool = False,
     multi-process path in JAX (which ignores --multihost there) raises
     ValueError for --multihost unless ``multihost``, and for a
     ``torchrun`` launch of more than one process unless ``data_parallel``
-    (ROADMAP D6).  --model_parallel is not ported (ROADMAP slice 8c-ii)."""
+    (ROADMAP D6).  --model_parallel is not ported (ROADMAP slice 8c-iii)."""
     if no_cache and cfg.device_cache:
         raise ValueError(f"--device_cache: {trainer} has no cached feed")
     if cfg.model_parallel > 1:
         raise NotImplementedError(
-            "--model_parallel is not ported yet (ROADMAP slice 8c-ii)")
+            "--model_parallel is not ported yet (ROADMAP slice 8c-iii)")
     if cfg.multihost and not multihost:
         raise ValueError(f"--multihost: {trainer} has no multi-process path")
     if env_world_size() > 1 and not (data_parallel or multihost):
@@ -195,9 +197,12 @@ def make_cached_balanced_step(model, optimizer, cfg: TrainConfig, cache,
     (``cached_selections``), on the device.  Only the selected rows' TSN
     frames are gathered (their uniforms drawn for the whole plan, from
     ``generator``), then the ``loss_kind`` step of
-    ``make_balanced_batch_step``."""
-    inner = make_balanced_batch_step(model, optimizer, cfg, loss_kind)
-    cut = cache.event_budget + 1
+    ``make_balanced_batch_step``.  Over a cache on a process mesh each
+    rank gathers its row block, receives its contiguous share of the
+    selected rows in one all-to-all, and trains on the ring."""
+    inner = make_balanced_batch_step(model, optimizer, cfg, loss_kind,
+                                     mesh=cache.mesh)
+    cut = cache.plan_rows
 
     def step(plan: torch.Tensor, learning_rate: float):
         gathered, labels, _ = cache.gather(plan[:cut], generator,
@@ -289,7 +294,7 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
 
     # --device_cache: the train windows stay on the device; a step is one
     # plan upload and one fused gather + train (None: stream)
-    cache = exp.build_cache(device)
+    cache = exp.build_cache(device, mesh=mesh)
     cached = None if cache is None else (cache, make_cached_balanced_step(
         model, optimizer, cfg, cache,
         torch.Generator(device=device).manual_seed(cfg.seed + 3), loss_kind))

@@ -31,9 +31,18 @@ on the device, with no readback (``log_deferred``).  With it,
 ``--device_cache`` keeps the three modalities on the device as int8 and a
 fused step gathers each batch there (train/cached_steps.py), with the
 class-margin table and the multimodal switch as epoch constants;
-``--steps_per_dispatch`` K issues K such steps back to back.  Single
-device; the multi-process paths raise (ROADMAP slice 8c-ii).  No CUDA kernel
-of ``csrc/`` is on either path.
+``--steps_per_dispatch`` K runs K such steps back to back.
+
+With ``--device_mining`` on more than one process (``torchrun``, or
+``--multihost`` with the coordinator flags) the fused step is
+data-parallel (ROADMAP D6): under ``torchrun`` every rank draws the global
+batch and keeps its rows; under ``--multihost`` each rank loads its
+session shard into its slice of the budget, for the global lockstep batch
+count, and the step gathers labels and mask.  The cache is sharded over
+the ranks.  Process 0 writes the checkpoints, ``dist_dict`` and the
+projector files.  The host miners are single-process: ``--multihost``
+without ``--device_mining`` raises, as in JAX.  No CUDA kernel of
+``csrc/`` is on either path.
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.multimodal_model --DATA_ROOT <dir> --feat resnet,sensors,segment --sensors_path <ckpt> --segment_path <ckpt> ...
 (``--device_mining`` for the fused step; ``--device cpu`` runs on the CPU;
@@ -61,11 +70,17 @@ from multimodal_similarity_tpu_torch.data.device_feed import (
 from multimodal_similarity_tpu_torch.models import (
     BRANCH_EMB_DIM, PDDM, RTSN, build_encoder, score_all_pairs_sym,
     score_rows)
+from multimodal_similarity_tpu_torch.models.encoders import Dropout
 from multimodal_similarity_tpu_torch.ops.distances import cdist_rows
 from multimodal_similarity_tpu_torch.ops.losses import triplet_loss_masked
 from multimodal_similarity_tpu_torch.ops.mining import (
     mine_hard_structure_triplets_rowwise,
     mine_semihard_triplets_from_embeddings, select_triplets_facenet)
+from multimodal_similarity_tpu_torch.parallel.data_parallel import (
+    backward_once, gather_rows, gather_shares, share, sum_gradients)
+from multimodal_similarity_tpu_torch.parallel.mesh import replicate
+from multimodal_similarity_tpu_torch.parallel.ring_mining import (
+    all_gather_rows)
 from multimodal_similarity_tpu_torch.train.cached_steps import (
     make_cached_body_step)
 from multimodal_similarity_tpu_torch.train.checkpoints import (
@@ -81,9 +96,8 @@ from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
 from multimodal_similarity_tpu_torch.train.trainers._loop import (
     loader_batches)
-from multimodal_similarity_tpu_torch.parallel.multihost import env_world_size
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
-    import TrainResult, _check_supported
+    import TrainResult, _check_supported, process_mesh
 
 BRANCHES = ("modality_sensors", "modality_segment")
 # the flagship's mining thresholds and hard triplets an anchor
@@ -290,15 +304,25 @@ def mm_optimizer(cfg: TrainConfig, model: nn.Module):
 
 def _mm_update(model: nn.Module, optimizer, cfg: TrainConfig, tri_events,
                mask_lab, mask_hard, mask_struct, margins,
-               learning_rate: float) -> dict:
+               learning_rate: float, mesh=None) -> dict:
     """Train-mode forward of the [a, p, n, a, p, n, ...] rows, the three
-    masked triplet losses, one optimizer step; device scalars."""
+    masked triplet losses, one optimizer step; device scalars.  On a
+    ``mesh`` ``tri_events`` is this rank's ``share`` of the rows: the
+    embeddings are gathered into the one global loss, this rank's rows
+    take its gradient, and the gradients are summed over the ranks."""
     core = model["modality_core"]
     core.train()
     optimizer.zero_grad(set_to_none=True)
-    emb = core(tri_events)
+    n_rows = 3 * mask_lab.shape[0]
+    if mesh is None:
+        emb = core(tri_events)
+    else:
+        with Dropout.global_rows(n_rows, share(n_rows, mesh)):
+            emb = core(tri_events)
     if cfg.normalized:
         emb = l2_normalize(emb)
+    if mesh is not None:
+        emb = gather_shares(emb, n_rows, mesh)
     tri = emb.reshape(mask_lab.shape[0], 3, -1)
     a, p, n = tri[:, 0], tri[:, 1], tri[:, 2]
     loss1 = triplet_loss_masked(a, p, n, mask_lab, cfg.alpha)
@@ -308,9 +332,14 @@ def _mm_update(model: nn.Module, optimizer, cfg: TrainConfig, tri_events,
     loss3 = (basic * mask_struct).sum() / torch.clamp(mask_struct.sum(),
                                                       min=1.0)
     total = loss1 + (loss2 + loss3 * 0.3) * cfg.lambda_multimodal
-    if cfg.lambda_l2:
-        total = total + cfg.lambda_l2 * l2_regularization(model)
-    total.backward()
+    reg = cfg.lambda_l2 * l2_regularization(model) if cfg.lambda_l2 else None
+    if mesh is None:
+        (total if reg is None else total + reg).backward()
+    else:
+        backward_once(total, reg, mesh)
+        sum_gradients(model, mesh)
+    if reg is not None:
+        total = total + reg
     apply_gradients(optimizer, learning_rate)
     return {"loss": total.detach(), "metric_loss1": loss1.detach(),
             "metric_loss2": loss2.detach(), "metric_loss3": loss3.detach()}
@@ -331,30 +360,48 @@ def fused_similarity(model: nn.Module, eve_sensors: torch.Tensor,
 
 def make_mm_fused_step(model: nn.Module, optimizer, cfg: TrainConfig,
                        generator: Optional[torch.Generator],
-                       hard_only: bool = False) -> Callable:
-    """The fused flagship step on one device, no host readback: the
-    eval-mode core embedding of the budget and the semi-hard miner; the
-    branch encoders, both PDDMs' rows for the sampled anchors and the
-    row-wise hard + structure miner; the gather of the mined triplets in
-    the feed's storage type; the train-mode re-forward and the three masked
-    losses (the structure term dropped under ``hard_only``).
+                       hard_only: bool = False, mesh=None,
+                       gather_smalls: bool = False) -> Callable:
+    """The fused flagship step, no host readback: the eval-mode core
+    embedding of the budget and the semi-hard miner; the branch encoders,
+    both PDDMs' rows for the sampled anchors and the row-wise hard +
+    structure miner; the gather of the mined triplets in the feed's
+    storage type; the train-mode re-forward and the three masked losses
+    (the structure term dropped under ``hard_only``).
 
     Returns step(events, eve_sensors, eve_segment, labels, mask,
     class_margins, use_multimodal, learning_rate) -> device scalars.
     ``events`` is dense or the int8 feed's {"q", "scale"}; ``generator``
-    (on the device) drives both miners' draws."""
+    (on the device) drives both miners' draws.
+
+    On a ``mesh`` (a parallel.ProcessMesh) the three modalities are this
+    rank's rows [r m, (r + 1) m) of the global batch and the step is
+    data-parallel: each rank embeds its rows, the core and branch
+    embeddings are all-gathered (no gradient) and every rank mines the
+    same triplets from the same draws, the mined rows reach the ranks that
+    re-forward them in one all-to-all (``gather_rows``), each rank takes
+    the gradient of the one global loss for its share and the gradients
+    are summed.  The dropout masks are drawn for the whole batch and
+    sliced, so every random stream is the one device's.
+    ``gather_smalls`` (``--multihost``): labels and mask arrive as this
+    rank's rows too and are all-gathered first."""
     hard_cap = cfg.triplet_per_batch
     struct_cap = cfg.triplet_per_batch // 2
     core_embed = make_embed_fn(model["modality_core"], cfg.normalized)
 
+    def gathered(x):
+        return x if mesh is None else all_gather_rows(x, mesh)
+
     def step(events, eve_sensors, eve_segment, labels, mask, class_margins,
              use_multimodal: float, learning_rate: float):
+        if mesh is not None and gather_smalls:
+            labels, mask = gathered(labels), gathered(mask)
         lab = mine_semihard_triplets_from_embeddings(
-            core_embed(dequant_features(events)), labels, generator,
-            cfg.triplet_per_batch, alpha=cfg.alpha,
+            gathered(core_embed(dequant_features(events))), labels,
+            generator, cfg.triplet_per_batch, alpha=cfg.alpha,
             num_negative=cfg.num_negative, valid=mask, metric=cfg.metric)
         with torch.no_grad():
-            embs = [model[s]["encoder"](dequant_features(x))
+            embs = [gathered(model[s]["encoder"](dequant_features(x)))
                     for s, x in zip(BRANCHES, (eve_sensors, eve_segment))]
 
             def sim_rows(rows):
@@ -378,14 +425,18 @@ def make_mm_fused_step(model: nn.Module, optimizer, cfg: TrainConfig,
         mm = mul.hard_mask * use_multimodal
         sm = (torch.zeros_like(mul.struct_mask) if hard_only
               else mul.struct_mask * use_multimodal)
+        if mesh is None:
+            tri_events = take_features(events, gather)
+        else:
+            rows = events["q"] if isinstance(events, dict) else events
+            tri_events = gather_rows(events, gather, mesh, rows.shape[0])
         aux = _mm_update(
-            model, optimizer, cfg,
-            dequant_features(take_features(events, gather)),
+            model, optimizer, cfg, dequant_features(tri_events),
             torch.cat([lab.mask, zeros(hard_cap + struct_cap)]),
             torch.cat([zeros(lab_t), mm, zeros(struct_cap)]),
             torch.cat([zeros(lab_t + hard_cap), sm]),
             torch.cat([zeros(lab_t + hard_cap), mul.margins]),
-            learning_rate)
+            learning_rate, mesh)
         aux.update(triplet_count=lab.mask.sum(), hard_count=mm.sum(),
                    struct_count=sm.sum(), active_count=lab.active_count)
         return aux
@@ -447,6 +498,19 @@ def make_host_step(model: nn.Module, optimizer, cfg: TrainConfig,
     return run
 
 
+def rank_batches(exp: HondaExperiment, mesh=None, multihost: bool = False):
+    """Loader batches epoch after epoch, for the feed thread.  On a
+    ``mesh`` without --multihost every rank draws the global batch and
+    keeps its rows of the three modalities (labels and mask stay global);
+    under --multihost the loader's batch is this rank's rows already."""
+    for b in loader_batches(exp):
+        if mesh is not None and not multihost:
+            rows = mesh.rows(len(b["events"]))
+            for key in ("events", "events2", "events3"):
+                b[key] = b[key][rows]
+        yield b
+
+
 def _echo(cfg, epoch, step, loss, tri, hard, struct):
     return (f"[{cfg.name}] epoch {epoch + 1} step {step} loss {loss:.4f} "
             f"tri/hard/struct {tri:.0f}/{hard:.0f}/{struct:.0f}")
@@ -460,11 +524,11 @@ def train(cfg: TrainConfig, hard_only: bool = False,
     fused step, ``hard_only`` drops the structure term.  ``--model_path``
     restores a port checkpoint (weights, optimizer state and step)."""
     name = "multimodal_model_hardonly" if hard_only else "multimodal_model"
-    if cfg.multihost or env_world_size() > 1:
+    if cfg.multihost and not device_mining:
         raise NotImplementedError(
-            f"{name} on more than one process (--multihost, or torchrun) is "
-            "not ported yet (ROADMAP slice 8c-ii)")
-    _check_supported(cfg, name)
+            "--multihost requires --device_mining (the fused step; host "
+            "miners are single-process)")
+    _check_supported(cfg, name, data_parallel=device_mining, multihost=True)
     if cfg.int8_features and not device_mining:
         raise ValueError("--int8_features requires --device_mining (the "
                          "device-fed path); the host miners gather dense "
@@ -473,12 +537,25 @@ def train(cfg: TrainConfig, hard_only: bool = False,
         raise ValueError("--device_cache requires --device_mining (the "
                          "fused device-fed step)")
     device = resolve_device(device)
+    event_budget = event_budget or cfg.event_per_batch
+    mesh = None
+    if device_mining:
+        # the budget rounded up to a multiple of the processes; on a mesh
+        # the rank's own device
+        mesh, event_budget, device = process_mesh(cfg, event_budget, device)
+    if cfg.multihost and mesh is None:
+        raise RuntimeError("--multihost needs >= 2 devices across processes")
     modalities = cfg.feat if isinstance(cfg.feat, list) else \
         ["resnet", "sensors", "segment"]
+    # --multihost: this rank loads its session shard into its slice of the
+    # budget, for the global lockstep batch count
     exp = HondaExperiment(cfg, modalities=modalities,
                           supports_int8=device_mining,
-                          event_budget=event_budget, result_dir=result_dir,
-                          limit_label_num=(cfg.task == "supervised"))
+                          event_budget=(event_budget // mesh.size
+                                        if cfg.multihost else event_budget),
+                          result_dir=result_dir,
+                          limit_label_num=(cfg.task == "supervised"),
+                          mesh=mesh, session_shard=cfg.multihost)
     model = build_model(cfg, device, sensors=exp.val_extra[0].shape[-1],
                         segment=exp.val_extra[1].shape[-1])
     for scope, path in zip(BRANCHES, (cfg.sensors_path, cfg.segment_path)):
@@ -488,6 +565,11 @@ def train(cfg: TrainConfig, hard_only: bool = False,
     step_host = 0
     if cfg.model_path:
         step_host = load_checkpoint(cfg.model_path, model, optimizer)
+    if mesh is not None:
+        replicate([p.data for p in model.parameters()], mesh)
+        if not cfg.silent_mode:
+            print(f"[{cfg.name}] data-parallel fused step over {mesh.size} "
+                  "processes" + (" (multihost)" if cfg.multihost else ""))
 
     embed_fn = make_embed_fn(model["modality_core"], cfg.normalized)
     val_x = torch.from_numpy(exp.val_feats).to(device)
@@ -495,10 +577,10 @@ def train(cfg: TrainConfig, hard_only: bool = False,
     dist_dict = init_dist_dict(embed_in_chunks(embed_fn, val_x, device),
                                val_labels, cfg.metric)
     if device_mining:
-        fused = make_mm_fused_step(
-            model, optimizer, cfg,
-            torch.Generator(device=device).manual_seed(cfg.seed + 2),
-            hard_only=hard_only)
+        mine_gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+        fused = make_mm_fused_step(model, optimizer, cfg, mine_gen,
+                                   hard_only=hard_only, mesh=mesh,
+                                   gather_smalls=cfg.multihost)
         keys, casts = (("events", "events2", "events3", "labels", "mask"),
                        feature_keys(cfg))
     else:
@@ -509,15 +591,22 @@ def train(cfg: TrainConfig, hard_only: bool = False,
             hard_only=hard_only)
         keys, casts = ("events", "events2", "events3"), {}
 
-    # --device_cache: the three modalities stay on the device; a step is
-    # one plan upload and one fused gather + mine + train, the margin table
-    # and the multimodal switch its epoch constants (None: stream)
-    cache = exp.build_cache(device) if device_mining else None
+    # --device_cache: the three modalities stay on the device (on a mesh,
+    # each rank its shard); a step is one plan upload and one fused gather
+    # + mine + train, the margin table and the multimodal switch its epoch
+    # constants (None: stream).  A cached batch's labels and mask are the
+    # whole batch's on every rank.
+    cache = exp.build_cache(device, mesh=mesh) if device_mining else None
     consts = {}
-    cached = None if cache is None else (cache, make_cached_body_step(
-        lambda ev, lab, m, lr: fused(*ev, lab, m, consts["cm"], consts["mm"],
-                                     lr),
-        cache, torch.Generator(device=device).manual_seed(cfg.seed + 3)))
+    cached = None
+    if cache is not None:
+        cached_fused = (fused if not cfg.multihost else make_mm_fused_step(
+            model, optimizer, cfg, mine_gen, hard_only=hard_only,
+            mesh=mesh))
+        cached = (cache, make_cached_body_step(
+            lambda ev, lab, m, lr: cached_fused(*ev, lab, m, consts["cm"],
+                                                consts["mm"], lr),
+            cache, torch.Generator(device=device).manual_seed(cfg.seed + 3)))
 
     def run(batch, lr):
         if device_mining:
@@ -532,7 +621,8 @@ def train(cfg: TrainConfig, hard_only: bool = False,
                      sc["hard_count"], sc["struct_count"])
 
     metrics = {}
-    exp.open_feed(device, loader_batches(exp), keys, cached=cached, **casts)
+    exp.open_feed(device, rank_batches(exp, mesh, cfg.multihost), keys,
+                  cached=cached, **casts)
     try:
         epoch = epoch_of_step(step_host, exp.batch_per_epoch)
         while epoch < cfg.max_epochs:
@@ -560,9 +650,10 @@ def train(cfg: TrainConfig, hard_only: bool = False,
                 for label, values in dist_dict.items():
                     values.append(_class_mean_distance(
                         val_emb, val_labels, label, cfg.metric))
-                with open(os.path.join(exp.result_dir, "dist_dict.pkl"),
-                          "wb") as f:
-                    pickle.dump(dist_dict, f)
+                if exp.is_chief:
+                    with open(os.path.join(exp.result_dir, "dist_dict.pkl"),
+                              "wb") as f:
+                        pickle.dump(dist_dict, f)
             exp.save(model, optimizer, step_host)
             epoch = epoch_of_step(step_host, exp.batch_per_epoch)
     finally:

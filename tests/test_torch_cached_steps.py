@@ -460,8 +460,10 @@ def test_cli_trains_cached_on_cpu(tmp_path):
 def test_cache_option_errors(tmp_path):
     """The reference's ValueErrors: --device_cache without the fused step
     (base_model's host miners, the flagship without --device_mining), with
-    --bf16_features; D5 on a trainer without a cached feed; a mesh names
-    slice 8c."""
+    --bf16_features; D5 on a trainer without a cached feed; a
+    session-sharded (--multihost) experiment's cache without the trainer's
+    mesh.  Given a one-rank mesh, ``build_cache`` builds over it: the
+    plans of a cache without one."""
     root = str(tmp_path / "data")
     generate_synthetic_honda(root, n_sessions=5, frames_per_session=300,
                              modal_dims={"resnet": (2, 2, 8),
@@ -482,9 +484,28 @@ def test_cache_option_errors(tmp_path):
         pairsim_model.train(cfg(), device="cpu")
     from multimodal_similarity_tpu_torch.train.trainers._honda import (
         HondaExperiment)
-    exp = HondaExperiment(cfg(), result_dir=str(tmp_path / "e"))
+    from multimodal_similarity_tpu_torch.parallel import create_mesh
+    from multimodal_similarity_tpu_torch.parallel.mesh import ProcessMesh
+    sharded = HondaExperiment(
+        cfg(), result_dir=str(tmp_path / "mh"), session_shard=True,
+        mesh=ProcessMesh(2, 0, None, torch.device("cpu")))
     try:
-        with pytest.raises(NotImplementedError, match="slice 8c"):
-            exp.build_cache("cpu", mesh=object())
+        with pytest.raises(ValueError, match="needs the trainer's global "
+                           "mesh"):
+            sharded.build_cache("cpu")
     finally:
+        sharded.close()
+    exp = HondaExperiment(cfg(), result_dir=str(tmp_path / "e"))
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    try:
+        mesh = create_mesh(1)
+        on_mesh = exp.build_cache("cpu", mesh=mesh)
+        assert on_mesh.mesh is mesh and on_mesh.n_shards == 1
+        alone = exp.build_cache("cpu")
+        assert alone.mesh is None
+        for a, b in zip(on_mesh.epoch_plans(), alone.epoch_plans()):
+            np.testing.assert_array_equal(a["packed"], b["packed"])
+    finally:
+        torch.distributed.destroy_process_group()
         exp.close()

@@ -19,6 +19,7 @@ from multimodal_similarity_tpu.data import tsn as jax_tsn
 from multimodal_similarity_tpu.data.datasets import (
     prepare_multimodal_dataset)
 from multimodal_similarity_tpu_torch.data import device_cache, tsn
+from multimodal_similarity_tpu_torch.parallel import create_mesh
 
 N_SEG = 3
 MODALITIES = ["resnet", "sensors", "segment"]
@@ -134,7 +135,7 @@ def test_resident_arrays_match_jax(dataset, workers, max_frames):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     plan = np.arange(3, dtype=np.int32)
     assert got.put_plans((plan,))[0] is plan
-    assert [len(s) for s in got._sessions] == \
+    assert [len(s) for s in got._shard_sessions[0]] == \
         [len(s) for s in want._shard_sessions[0]]
 
 
@@ -210,10 +211,11 @@ def test_epoch_batches_two_call_path(dataset):
                                       b["labels_host"] * (b["mask_host"] > 0))
 
 
-def test_budget_decline_and_errors_match_jax(dataset, capsys):
+def test_budget_decline_and_errors_match_jax(dataset, capsys, tmp_path):
     """Over budget both builds return None with the same notice; bad
-    modality modes raise the same errors; a mesh raises, naming slice
-    8c; the budget helpers and the window notice."""
+    modality modes raise the same errors; a build over a one-rank mesh has
+    the resident arrays and plans of one without; the budget helpers and
+    the window notice."""
     est = device_cache.estimate_cache_bytes(dataset)
     kw = dict(n_seg=N_SEG, sess_per_batch=2, event_budget=40, seed=0,
               budget_bytes=est - 1)
@@ -229,10 +231,20 @@ def test_budget_decline_and_errors_match_jax(dataset, capsys):
             device_cache.DeviceFeatureCache.build(
                 dataset, n_seg=N_SEG, sess_per_batch=2, event_budget=40,
                 seed=0, device="cpu", modality_modes=modes, verbose=False)
-    with pytest.raises(NotImplementedError, match="slice 8c"):
-        device_cache.DeviceFeatureCache.build(
-            dataset, n_seg=N_SEG, sess_per_batch=2, event_budget=40, seed=0,
-            device="cpu", mesh=object())
+    kw = dict(n_seg=N_SEG, sess_per_batch=2, event_budget=40, seed=0,
+              device="cpu", verbose=False)
+    alone = device_cache.DeviceFeatureCache.build(dataset, **kw)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    try:
+        on_mesh = device_cache.DeviceFeatureCache.build(
+            dataset, mesh=create_mesh(1), **kw)
+    finally:
+        torch.distributed.destroy_process_group()
+    for a, b in zip(on_mesh.step_operands(), alone.step_operands()):
+        assert torch.equal(a, b)
+    for a, b in zip(on_mesh.epoch_plans(), alone.epoch_plans()):
+        np.testing.assert_array_equal(a["packed"], b["packed"])
     assert device_cache.cache_budget_bytes(6.0) == jdc.cache_budget_bytes(
         6.0) == 6_000_000_000
     got, _ = _builds(dataset)

@@ -582,9 +582,11 @@ def test_cli_runs_on_cpu(tmp_path, name):
 
 
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch):
-    """The multi-process flags raise NotImplementedError naming slice
-    8c-ii on the flagship, and --multihost D6's ValueError on the weak
-    trainer (no multi-process path in JAX);
+    """On the flagship: --multihost without --device_mining raises JAX's
+    NotImplementedError, and with it but no process group JAX's
+    RuntimeError; --model_parallel raises NotImplementedError naming slice
+    8c-iii.  --multihost raises D6's ValueError on the weak trainer (no
+    multi-process path in JAX);
     --device_cache without --device_mining, or with --bf16_features, and
     --int8_features without --device_mining raise ValueError on the
     flagship, --device_cache (D5) and --int8_features on the weak trainer;
@@ -595,11 +597,17 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch):
         return _cfg(TrainConfig, DATA_ROOT=root, sess_per_batch=1,
                     feat="resnet,sensors,segment", **CONV, **kw)
 
-    for flags in (dict(multihost=True), dict(model_parallel=2)):
-        for device_mining in (False, True):
-            with pytest.raises(NotImplementedError, match="slice 8c-ii"):
-                multimodal_model.train(cfg(**flags), device="cpu",
-                                       device_mining=device_mining)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(NotImplementedError,
+                       match="--multihost requires --device_mining"):
+        multimodal_model.train(cfg(multihost=True), device="cpu")
+    with pytest.raises(RuntimeError, match="needs >= 2 devices"):
+        multimodal_model.train(cfg(multihost=True), device="cpu",
+                               device_mining=True)
+    for device_mining in (False, True):
+        with pytest.raises(NotImplementedError, match="slice 8c-iii"):
+            multimodal_model.train(cfg(model_parallel=2), device="cpu",
+                                   device_mining=device_mining)
     with pytest.raises(ValueError, match="--multihost: multimodal_model_weak "
                        "has no multi-process path"):
         multimodal_model_weak.train(cfg(multihost=True), device="cpu")

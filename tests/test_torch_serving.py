@@ -11,6 +11,7 @@ byte-identical between the packages and load in either.  Embeddings agree
 within 1e-5, the JAX side's int8 dequantization pinned to bf16 as the JAX
 function states (D1)."""
 
+import contextlib
 import os
 
 import jax
@@ -33,6 +34,20 @@ from multimodal_similarity_tpu_torch.serving import (
     EmbeddingService, RetrievalIndex)
 
 CPU = "cpu"
+
+
+@contextlib.contextmanager
+def world_one(tmp_path):
+    """A one-rank gloo group in this process and its mesh, torn down
+    after the block."""
+    from multimodal_similarity_tpu_torch.parallel import create_mesh
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/pg_one", world_size=1,
+        rank=0)
+    try:
+        yield create_mesh(1)
+    finally:
+        torch.distributed.destroy_process_group()
 RTOL = 1e-5
 INT8_ATOL = 3e-4
 
@@ -347,10 +362,11 @@ def test_retrieval_index_gallery_cached_and_invalidated(rng):
     assert int(idx.query(q[0:1], k=1)[1][0, 0]) == 32
 
 
-def test_retrieval_index_guards_and_1d_query(rng):
+def test_retrieval_index_guards_and_1d_query(rng, tmp_path):
     """Misaligned metadata raises; a 1-D query is Q=1; metadata stays
-    aligned over several adds; k is clamped to the gallery's size; a mesh
-    raises NotImplementedError naming slice 8; l1 with int8 raises."""
+    aligned over several adds; k is clamped to the gallery's size; an
+    index on a one-rank mesh (the sharded path at world 1) answers as the
+    index without one, k clamped there too; l1 with int8 raises."""
     idx = RetrievalIndex(emb_dim=8, device=CPU)
     with pytest.raises(ValueError):
         idx.add(rng.randn(10, 8).astype(np.float32), metadata=["a"] * 5)
@@ -364,8 +380,15 @@ def test_retrieval_index_guards_and_1d_query(rng):
     all_meta = [f"m{i}" for i in range(10)] + [f"n{i}" for i in range(6)]
     assert meta[0] == [all_meta[j] for j in ids[0]]
     assert idx.query(np.zeros(8, np.float32), k=50)[1].shape == (1, 16)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        RetrievalIndex(8, mesh=object(), device=CPU)
+    with world_one(tmp_path) as mesh:
+        sharded = RetrievalIndex(8, mesh=mesh)
+        sharded.add(idx._gallery_host(), metadata=all_meta)
+        queries = rng.randn(5, 8).astype(np.float32)
+        for k in (3, 50):
+            got, want = sharded.query(queries, k=k), idx.query(queries, k=k)
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[2] == want[2]
     with pytest.raises(NotImplementedError):
         RetrievalIndex(8, metric="l1", int8_gallery=True, device=CPU)
 
@@ -413,8 +436,12 @@ def test_retrieval_index_save_load_roundtrip(tmp_path, int8):
     assert m0 == m1
     if int8:
         assert idx2._gallery is None and not idx2._blocks
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        RetrievalIndex.load(str(tmp_path / "ix"), mesh=object(), device=CPU)
+    with world_one(tmp_path) as mesh:
+        d2, i2, m2 = RetrievalIndex.load(str(tmp_path / "ix"),
+                                         mesh=mesh).query(q, k=7)
+    np.testing.assert_array_equal(i0, i2)
+    np.testing.assert_array_equal(d0, d2)
+    assert m0 == m2
 
 
 def test_retrieval_index_save_in_place_over_loaded_dir(tmp_path):
