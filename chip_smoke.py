@@ -174,7 +174,7 @@ Phases, each fatal on failure (no error is caught):
    head of its sensors ``pddm_model``) card vs CPU on the same 340 events,
    ``analysis`` on an ``evaluate_model`` results.pkl; ``python3 -m
    multimodal_similarity_tpu_torch`` (listing, ``eval.analysis``, and
-   ``preprocess.frames``, which must fail) in subprocesses;
+   ``preprocess.frames --help``) in subprocesses;
 18. slice 8a, the device feature cache (``cache_phase``): on the
    full-budget directory the default ``--device_cache_gb`` 6.0 declines
    with the reference's notice and CACHE_GB builds (a decline fails the
@@ -221,8 +221,28 @@ Phases, each fatal on failure (no error is caught):
    on a full-budget batch and the cached flagship for two 2-step windows,
    on the mesh and without it (loss and parameters within SH_STEP_RTOL,
    ms a draw of each); then removes the full-budget directory and prints
-   each phase's native gathers and deferrals (phases 8-15 and 17 must
-   have gathered natively).
+   each phase's native gathers and deferrals (phases 8-15, 17 and 21
+   must have gathered natively);
+21. slice 9, per-frame feature extraction (``features_phase``), with no
+   launch of any ``csrc/`` kernel outside its training epoch: the
+   Inception-ResNet-v2 trunk (54,276,192 parameters) and InceptionV1 at
+   full width from a seeded generator, a 2-image batch at 299 / 224 on the
+   card against the CPU forward of the same weights (TOWER_RTOL, TF32
+   off); a slim checkpoint made from the seed grafted onto the card trunk
+   (every parameter and running statistic); ``slim_backbone`` on seeded
+   uint8 frames at the Honda camera's 720 x 1280 (the antialiased resize
+   to 299 on the card), 2 frames against the CPU's, then ms a batch of 32
+   and frames a second with TF32 off and on; ``PipelinedBackbone`` in 2
+   stages on ``cuda:0`` twice (microbatch 8) against the single stage
+   (PIPE_RTOL) with its frames a second, and 2 stages with
+   ``devices=None`` raising on one card; the resnet .npy of a synthetic
+   Honda directory (3 sessions x 240 frames) written by
+   ``extract_sessions`` from seeded frames, then one epoch of
+   ``base_model_batchhard`` at full width on them with its K3 launches;
+   ``preprocess.segmentation``, ``preprocess.sensors`` and
+   ``tools.import_tf1`` through ``python3 -m
+   multimodal_similarity_tpu_torch`` on seed-made inputs, each output held
+   to the function run in-process.
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -233,6 +253,7 @@ import functools
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -4177,22 +4198,20 @@ def eval_cli_phase(full_root, ckpts, pairsim_ckpt, hal_ckpt):
 
 def dispatcher_phase(results_pkl):
     """``python3 -m multimodal_similarity_tpu_torch``: the listing, one
-    eval.* command (analysis on ``results_pkl``) and a preprocess.* one,
-    which must fail."""
+    eval.* command (analysis on ``results_pkl``) and ``preprocess.frames
+    --help`` (phase 21 runs the other preprocess.* and tools.* CLIs)."""
     cmd = [sys.executable, "-m", "multimodal_similarity_tpu_torch"]
     runs = {"list": [], "eval": ["eval.analysis", results_pkl],
-            "preprocess": ["preprocess.frames"]}
+            "preprocess": ["preprocess.frames", "--help"]}
+    expect = {"list": "base_model_CUB", "eval": "per-class mAP",
+              "preprocess": "--video_template"}
     out = {}
     for tag, args in runs.items():
         t0 = time.time()
         p = subprocess.run(cmd + args, cwd=HERE, capture_output=True,
                            text=True, timeout=300)
         out[tag] = (p.returncode, round(time.time() - t0, 2))
-        if tag == "preprocess":
-            if p.returncode == 0 or "slice 9" not in p.stderr:
-                fail("dispatcher: preprocess.frames did not fail")
-        elif p.returncode != 0 or ("base_model_CUB" if tag == "list"
-                                   else "per-class mAP") not in p.stdout:
+        if p.returncode != 0 or expect[tag] not in p.stdout:
             fail(f"dispatcher: {tag} failed: {p.stderr[-2000:]}")
     print(f"[serve] dispatcher (rc, s) {json.dumps(out)}", flush=True)
     return out
@@ -5223,6 +5242,346 @@ def sharded_phase(root, full_root, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 9: per-frame feature extraction on the card
+# ---------------------------------------------------------------------------
+
+# the slim trunks' parameter counts (the JAX package's test tables)
+TOWER_PARAMS = {"inception_resnet_v2": 54_276_192, "inception_v1": 5_592_624}
+# card vs CPU on the same weights and inputs, TF32 off: the largest
+# element difference over the output's largest magnitude
+TOWER_RTOL = 1e-4
+# the two-stage pipeline against the single-stage forward on the card: the
+# same, with cuDNN free to pick other algorithms at the microbatch's size
+PIPE_RTOL = 1e-4
+FRAME_HW = (720, 1280)          # the Honda camera's native frames
+FEAT_BATCH = 32                 # extract_sessions' batch
+FEAT_TIMED = 5                  # timed batches a setting
+PIPE_MICROBATCH = 8
+P21_SESSIONS, P21_FRAMES = 3, 240
+
+
+def rel_delta(got, want):
+    """The largest element difference over ``want``'s largest magnitude."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+def towers_on_card():
+    """Each slim tower at full width from a seeded generator: its
+    parameter count, and a 2-image batch at its slim size on the card
+    against the CPU forward of the same weights (TF32 off)."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.models import (
+        InceptionResNetV2, InceptionV1)
+    out = {}
+    for name, cls, size in (("inception_resnet_v2", InceptionResNetV2, 299),
+                            ("inception_v1", InceptionV1, 224)):
+        model = cls(generator=torch.Generator().manual_seed(21)).eval()
+        n = sum(p.numel() for p in model.parameters())
+        if n != TOWER_PARAMS[name]:
+            fail(f"p21: {name} has {n} parameters, not {TOWER_PARAMS[name]}")
+        x = torch.from_numpy(np.random.RandomState(21).uniform(
+            -1, 1, (2, 3, size, size)).astype(np.float32))
+        with torch.no_grad():
+            want = model(x)
+            model.cuda()
+            got = model(x.cuda()).cpu()
+        err = rel_delta(got, want)
+        out[name] = {"params": n, "shape": list(got.shape), "rel": err}
+        if not (err <= TOWER_RTOL and bool(torch.isfinite(got).all())):
+            fail(f"p21: {name} card vs CPU {err:.3g} > {TOWER_RTOL:g}")
+        del model
+    print(f"[p21] towers at full width, card vs CPU (TF32 off, tol "
+          f"{TOWER_RTOL:g}): {json.dumps(out)}", flush=True)
+    return out
+
+
+def fake_slim_npz(path, seed=21):
+    """A slim checkpoint of the Inception-ResNet-v2 trunk made from the
+    seed, one variable for every parameter and running statistic: kernels
+    [kh, kw, in, out] of variance 1 / fan-in, betas and biases of a tenth,
+    moving means of a fifth, moving variances in [0.5, 2]."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.models import InceptionResNetV2
+    with torch.device("meta"):
+        state = InceptionResNetV2().state_dict()
+    rng = np.random.default_rng(seed)
+    slim = {}
+    for key, t in state.items():
+        scope, leaf = key.rsplit(".", 1)
+        scope = scope.rsplit(".", 1)[-1]        # units.<i>.<scope>
+        shape = tuple(t.shape)
+        if leaf == "weight":
+            o, i, kh, kw = shape
+            name = f"{scope}/weights"
+            arr = rng.standard_normal((kh, kw, i, o), np.float32) \
+                / np.float32(np.sqrt(kh * kw * i))
+        elif leaf == "bias" and scope.endswith("_BatchNorm"):
+            name = f"{scope[:-10]}/BatchNorm/beta"
+            arr = 0.1 * rng.standard_normal(shape, np.float32)
+        elif leaf == "bias":
+            name = f"{scope}/biases"
+            arr = 0.1 * rng.standard_normal(shape, np.float32)
+        elif leaf == "running_mean":
+            name = f"{scope[:-10]}/BatchNorm/moving_mean"
+            arr = 0.2 * rng.standard_normal(shape, np.float32)
+        else:
+            name = f"{scope[:-10]}/BatchNorm/moving_variance"
+            arr = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+        slim[f"InceptionResnetV2/{name}"] = arr
+    np.savez(path, **slim)
+    return len(slim)
+
+
+def seeded_frames(n, seed):
+    """``n`` uint8 noise frames in [0, 120) at FRAME_HW from the seed."""
+    import numpy as np
+    return np.random.RandomState(seed).randint(
+        0, 120, (n,) + FRAME_HW + (3,)).astype(np.uint8)
+
+
+def extraction_rates(npz, card):
+    """slim_backbone on the card with the slim graft: 2 frames against the
+    CPU's embed_fn on the same checkpoint, then ms a batch of FEAT_BATCH
+    720 x 1280 frames (upload, antialiased resize to 299, forward,
+    readback; CUDA events) with TF32 off and on.  Returns (embed_fn, the
+    timed frames, rates)."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.preprocess.features import (
+        slim_backbone)
+    t0 = time.time()
+    embed = slim_backbone("inception_resnet_v2", npz, device="cuda")
+    graft_s = time.time() - t0
+    host = slim_backbone("inception_resnet_v2", npz, device="cpu")
+    frames = seeded_frames(FEAT_BATCH, 22)
+    got, want = embed(frames[:2]), host(frames[:2])
+    del host
+    err = rel_delta(got, want)
+    if got.shape != (2, 8, 8, 1536) or got.dtype != np.float32 or \
+            not err <= TOWER_RTOL:
+        fail(f"p21: slim_backbone card vs CPU {got.shape} {got.dtype} "
+             f"{err:.3g}")
+    rates = {"graft_s": round(graft_s, 3), "card_vs_cpu": err}
+    flags = torch.backends.cudnn
+    feats = {}
+    for tf32 in (False, True):
+        flags.allow_tf32 = tf32
+        try:
+            ms = call_ms(lambda: embed(frames), iters=FEAT_TIMED, warmup=2)
+            feats[tf32] = embed(frames)
+        finally:
+            flags.allow_tf32 = False
+        tag = "tf32" if tf32 else "f32"
+        rates[f"{tag}_ms_per_batch"] = ms
+        rates[f"{tag}_frames_per_s"] = FEAT_BATCH / (ms / 1e3)
+    rates["tf32_vs_f32"] = rel_delta(feats[True], feats[False])
+    if not np.isfinite(feats[True]).all():
+        fail("p21: non-finite features with TF32 on")
+    print(f"[p21] slim_backbone at {FRAME_HW[0]}x{FRAME_HW[1]} -> 299, batch "
+          f"{FEAT_BATCH} ({card}): {json.dumps(rates)}", flush=True)
+    return embed, frames, rates
+
+
+def pipeline_checks(embed, frames, single_ms, card):
+    """PipelinedBackbone over the grafted trunk in 2 stages on one card
+    (``devices=[cuda:0, cuda:0]``, a stream a stage), microbatch
+    PIPE_MICROBATCH, preprocessing in stage 0: against the single-stage
+    output (PIPE_RTOL) and its frames a second beside the single stage's;
+    ``devices=None`` with 2 stages on one visible card raises."""
+    import torch
+    from multimodal_similarity_tpu_torch.models import N_PIPELINE_UNITS
+    from multimodal_similarity_tpu_torch.parallel import (
+        INCEPTION_RESNET_V2_UNIT_COSTS, PipelinedBackbone)
+    from multimodal_similarity_tpu_torch.preprocess.features import (
+        make_preprocess)
+    kw = dict(n_units=N_PIPELINE_UNITS, input_shape=FRAME_HW + (3,),
+              microbatch=PIPE_MICROBATCH,
+              unit_costs=INCEPTION_RESNET_V2_UNIT_COSTS,
+              preprocess=make_preprocess(299), input_dtype=torch.uint8)
+    pipe = PipelinedBackbone(embed.model, devices=["cuda:0", "cuda:0"], **kw)
+    got = pipe(frames).transpose(0, 2, 3, 1)
+    err = rel_delta(got, embed(frames))
+    ms = call_ms(lambda: pipe(frames), iters=FEAT_TIMED, warmup=1)
+    out = {"stage_ranges": pipe.stage_ranges,
+           "stage_params": pipe.stage_parameter_counts(),
+           "vs_single": err, "ms_per_batch": ms,
+           "frames_per_s": FEAT_BATCH / (ms / 1e3),
+           "single_frames_per_s": FEAT_BATCH / (single_ms / 1e3)}
+    print(f"[p21] 2-stage pipeline on one card ({card}): {json.dumps(out)}",
+          flush=True)
+    if not err <= PIPE_RTOL:
+        fail(f"p21: the pipeline differs from the single stage by {err:.3g}")
+    if torch.cuda.device_count() == 1:
+        try:
+            PipelinedBackbone(embed.model, n_stages=2, **kw)
+        except ValueError as e:
+            if "are visible" not in str(e):
+                fail(f"p21: devices=None raised another error: {e}")
+        else:
+            fail("p21: 2 stages with devices=None on one card did not "
+                 "raise")
+    return out
+
+
+def frames_to_training(root, embed):
+    """The resnet features of a synthetic Honda directory (P21_SESSIONS x
+    P21_FRAMES) written by extract_sessions from seeded 720 x 1280 frames
+    brightened by their event class (the JPEG reader stays on the CPU: no
+    Pillow here), then one epoch of
+    base_model_batchhard at full width on them (a session a batch: two
+    steps), with its launches."""
+    import numpy as np
+    from multimodal_similarity_tpu_torch.data import generate_synthetic_honda
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts, use_triangular)
+    from multimodal_similarity_tpu_torch.preprocess.features import (
+        extract_sessions)
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_model_batchhard)
+    # two train sessions and one validation session (it is also the test
+    # split's)
+    split = generate_synthetic_honda(
+        root, n_sessions=P21_SESSIONS, frames_per_session=P21_FRAMES,
+        modal_dims={"resnet": (8, 8, 1536)}, seed=0, splits=(0.67, 0.34))
+    feat_root = os.path.join(root, "features")
+    for sess in split["all"]:
+        os.remove(os.path.join(feat_root, sess + ".npy"))
+
+    def load_frames(frame_dir):
+        # a session's pool of noise frames, each brightened by its event
+        # class (at most 120), so that the features, and the trained
+        # embeddings, carry the labels
+        sess = os.path.basename(frame_dir)
+        base = seeded_frames(FEAT_BATCH, split["all"].index(sess))
+        with open(os.path.join(root, "labels", f"{sess}_goal.pkl"),
+                  "rb") as f:
+            tint = (12 * np.asarray(pickle.load(f)["label"])).astype(
+                np.uint8)
+        for i in range(0, P21_FRAMES, FEAT_BATCH):
+            n = min(FEAT_BATCH, P21_FRAMES - i)
+            yield from base[:n] + tint[i:i + n, None, None, None]
+
+    reset_launch_counts()
+    t0 = time.time()
+    extract_sessions(split["all"], os.path.join(root, "frames"), feat_root,
+                     embed, batch_size=FEAT_BATCH, load_frames=load_frames)
+    extract_s = time.time() - t0
+    expect_launches("p21-extract", dict(LAUNCHES),
+                    dict.fromkeys(LAUNCHES, 0))
+    for sess in split["all"]:
+        f = np.load(os.path.join(feat_root, sess + ".npy"))
+        if f.shape != (P21_FRAMES, 8, 8, 1536) or f.dtype != np.float32 \
+                or not np.isfinite(f).all():
+            fail(f"p21: {sess}.npy is {f.shape} {f.dtype} or not finite")
+    cfg = full_width_cfg(root, "p21", max_epochs=1, sess_per_batch=1)
+    res, launches, n_val, _, emb, _ = drive_trainer(
+        root, "p21", base_model_batchhard.train, cfg)
+    want = dict.fromkeys(BATCH_HARD, 0)
+    tri_step = use_triangular(cfg.batch_size, cfg.emb_dim, sm_count())
+    tri_val = use_triangular(emb.shape[0], cfg.emb_dim, sm_count())
+    want["batch_hard_tri_idx" if tri_step else "batch_hard_stats_idx"] += \
+        res.step
+    want["batch_hard_tri" if tri_val else "batch_hard_stats"] += n_val
+    expect_launches("p21", launches, want)
+    out = {"frames": P21_SESSIONS * P21_FRAMES,
+           "extract_s": round(extract_s, 3),
+           "frames_per_s": P21_SESSIONS * P21_FRAMES / extract_s,
+           "steps": res.step, "K3_launches": launches["batch_hard_tri_idx"],
+           "launches": launches}
+    print(f"[p21] frames -> features -> training: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def dispatch_checks(root):
+    """``python -m multimodal_similarity_tpu_torch preprocess.segmentation``,
+    ``preprocess.sensors`` and ``tools.import_tf1`` on small seed-made
+    inputs, each output held to the same function run here."""
+    import numpy as np
+    import torch
+    from multimodal_similarity_tpu_torch.preprocess import segmentation
+    from multimodal_similarity_tpu_torch.preprocess.sensors import (
+        compute_sensor_stats, normalize_sensors)
+    rng = np.random.RandomState(21)
+    d = os.path.join(root, "dispatch")
+    os.makedirs(d)
+    seg = rng.randn(4, 16, 24, 17).astype(np.float32)
+    np.save(os.path.join(d, "s1_seg.npy"), seg)
+    raws = [rng.randn(30, 8) * 3 + 5 for _ in range(2)]
+    for i, raw in enumerate(raws):
+        raw[:, 5:7] = rng.randint(0, 2, (30, 2))
+        np.save(os.path.join(d, f"s{i}_sensors.npy"), raw)
+    with open(os.path.join(d, "sessions.txt"), "w") as f:
+        f.write("s0\ns1\n")
+    tf1 = {"RTSN/W_1": rng.randn(8, 16).astype(np.float32),
+           "RTSN/b_1": rng.randn(16).astype(np.float32),
+           "RTSN/lstm_cell/kernel": rng.randn(32, 64).astype(np.float32),
+           "RTSN/lstm_cell/bias": rng.randn(64).astype(np.float32),
+           "RTSN/W_1/Adam": np.zeros((8, 16), np.float32)}
+    np.savez(os.path.join(d, "ref.npz"), **tf1)
+    runs = {
+        "preprocess.segmentation": ["--seg_root", d, "--feature_root", d],
+        "preprocess.sensors": ["--feature_root", d, "--session_file",
+                               os.path.join(d, "sessions.txt")],
+        "tools.import_tf1": ["--ckpt", os.path.join(d, "ref.npz"),
+                             "--model", "rtsn", "--output",
+                             os.path.join(d, "rtsn.ckpt-0")]}
+    out = {}
+    for cmd, args in runs.items():
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-m",
+                            "multimodal_similarity_tpu_torch", cmd] + args,
+                           cwd=HERE, capture_output=True, text=True,
+                           timeout=300)
+        out[cmd] = (p.returncode, round(time.time() - t0, 2))
+        if p.returncode != 0:
+            fail(f"p21: {cmd} failed: {p.stderr[-2000:]}")
+    if not np.array_equal(np.load(os.path.join(d, "s1_seg_sp.npy")),
+                          segmentation.spatial_pyramid_features(seg)):
+        fail("p21: preprocess.segmentation wrote other features")
+    mu, std = compute_sensor_stats(raws)
+    for i, raw in enumerate(raws):
+        got = np.load(os.path.join(d, f"s{i}_sensors_normalized.npy"))
+        if not np.array_equal(got, normalize_sensors(raw, mu, std)):
+            fail("p21: preprocess.sensors wrote other values")
+    state = torch.load(os.path.join(d, "rtsn.ckpt-0"),
+                       weights_only=True)["model"]
+    if not (np.array_equal(state["fc1.weight"].numpy(), tf1["RTSN/W_1"].T)
+            and np.array_equal(state["lstm.cell.kernel.weight"].numpy(),
+                               tf1["RTSN/lstm_cell/kernel"].T)):
+        fail("p21: tools.import_tf1 wrote other weights")
+    print(f"[p21] dispatcher (rc, s) {json.dumps(out)}", flush=True)
+    return out
+
+
+def features_phase(root):
+    """Phase 21: slice 9 on the card."""
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+    t0 = time.time()
+    card = card_line()
+    reset_launch_counts()
+    towers = towers_on_card()
+    d = os.path.join(root, "p21")
+    os.makedirs(d)
+    npz = os.path.join(d, "irv2_slim.npz")
+    n_vars = fake_slim_npz(npz)
+    print(f"[p21] fake slim checkpoint: {n_vars} variables", flush=True)
+    embed, frames, rates = extraction_rates(npz, card)
+    pipe = pipeline_checks(embed, frames, rates["f32_ms_per_batch"], card)
+    expect_launches("p21-towers", dict(LAUNCHES), dict.fromkeys(LAUNCHES, 0))
+    training = frames_to_training(os.path.join(d, "honda"), embed)
+    dispatch = dispatch_checks(d)
+    print(f"[p21] phase 21 {time.time() - t0:.1f} s ({card})", flush=True)
+    return {"towers": towers, "rates": rates, "pipeline": pipe,
+            "training": training, "dispatch": dispatch}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5307,8 +5666,9 @@ def main():
         run_control_phase(root, steady_root)
         sharded_phase(root, full_root)
         shutil.rmtree(full_root)
-    # every Honda loader of phases 8-15 and 17 draws TSN segments: each
-    # must have taken the native gather
+        counted("features", features_phase, root)
+    # every Honda loader of phases 8-15, 17 and 21 draws TSN segments:
+    # each must have taken the native gather
     print(f"[native] gathers and deferrals by phase {json.dumps(gathers)}",
           flush=True)
     for tag, counts in gathers.items():

@@ -1,11 +1,13 @@
-"""Package CLI: list and dispatch the trainers and evaluation CLIs.
+"""Package CLI: list and dispatch the trainers, the evaluation CLIs, the
+preprocessing CLIs and the tools.
 
     python -m multimodal_similarity_tpu_torch                  # list commands
     python -m multimodal_similarity_tpu_torch train.base_model --DATA_ROOT ...
     python -m multimodal_similarity_tpu_torch eval.evaluate_model --model_path ...
+    python -m multimodal_similarity_tpu_torch preprocess.features --frame_root ...
+    python -m multimodal_similarity_tpu_torch tools.import_tf1 --ckpt ...
 
-The command lists are the JAX package's.  ``preprocess.*`` and ``tools.*``
-are slice 9 of the port and raise ``NotImplementedError``.
+The command lists are the JAX package's.
 """
 
 from __future__ import annotations
@@ -56,19 +58,15 @@ def main(argv=None) -> int:
         "train": ("multimodal_similarity_tpu_torch.train.trainers.",
                   TRAINERS),
         "eval": ("multimodal_similarity_tpu_torch.eval.", EVALS),
-        "preprocess": (None, PREPROCESS),
-        "tools": (None, TOOLS),
+        "preprocess": ("multimodal_similarity_tpu_torch.preprocess.",
+                       PREPROCESS),
+        "tools": ("multimodal_similarity_tpu_torch.tools.", TOOLS),
     }
     if group not in module_map or name not in module_map[group][1]:
         print(f"unknown command: {cmd}\n")
         _usage()
         return 2
-    prefix = module_map[group][0]
-    if prefix is None:
-        raise NotImplementedError(
-            f"{cmd} is slice 9 of the port (preprocess/*, tools/*), not "
-            "ported yet")
-    importlib.import_module(prefix + name).main(argv[1:])
+    importlib.import_module(module_map[group][0] + name).main(argv[1:])
     return 0
 
 

@@ -1,6 +1,7 @@
 """Model zoo: the temporal encoders, the pretraining autoencoders
 (Seq2seqTSN, SAE), the CUB heads and tower, the pair heads (PairSim,
-PairSim2, PDDM) and their all-pairs scorers.
+PairSim2, PDDM) and their all-pairs scorers, and the feature-extraction
+towers (InceptionResNetV2, InceptionV1) with slim checkpoint grafting.
 
 ``build_encoder`` mirrors the reference trainers' ``--network`` dispatch.
 """
@@ -13,8 +14,11 @@ from multimodal_similarity_tpu_torch.models.encoders import (
     Seq2seqTSN)
 from multimodal_similarity_tpu_torch.models.heads import (
     PDDM, PairSim, PairSim2, score_all_pairs, score_all_pairs_sym, score_rows)
+from multimodal_similarity_tpu_torch.models.inception_resnet_v2 import (
+    N_PIPELINE_UNITS, InceptionResNetV2)
+from multimodal_similarity_tpu_torch.models.inception_v1 import InceptionV1
 from multimodal_similarity_tpu_torch.models.inception_v2 import (
-    ENDPOINT_CHANNELS, InceptionV2)
+    ENDPOINT_CHANNELS, InceptionV2, graft_slim_npz, graft_slim_variables)
 from multimodal_similarity_tpu_torch.models.lstm import (
     LSTM, BiLSTM, TFLSTMCell)
 
@@ -58,4 +62,6 @@ __all__ = ["BRANCH_EMB_DIM", "TSN", "RTSN", "ConvEmbed", "ConvTSN",
            "Dropout", "LSTM", "BiLSTM",
            "TFLSTMCell", "PDDM", "PairSim", "PairSim2", "score_all_pairs",
            "score_rows", "score_all_pairs_sym", "InceptionV2",
-           "ENDPOINT_CHANNELS", "build_encoder"]
+           "ENDPOINT_CHANNELS", "graft_slim_variables", "graft_slim_npz",
+           "InceptionResNetV2", "InceptionV1", "N_PIPELINE_UNITS",
+           "build_encoder"]

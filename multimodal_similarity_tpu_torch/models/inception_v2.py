@@ -66,20 +66,26 @@ def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _pad_same(x: torch.Tensor, k: int, stride: int, value: float = 0.0):
+def _pair(k) -> Tuple[int, int]:
+    return (k, k) if isinstance(k, int) else tuple(k)
+
+
+def _pad_same(x: torch.Tensor, k, stride: int, value: float = 0.0):
     """(x, symmetric padding left for the op): pads ``x`` explicitly when
-    TF's ``SAME`` split is uneven along either axis."""
-    ph = _same_pads(x.shape[2], k, stride)
-    pw = _same_pads(x.shape[3], k, stride)
+    TF's ``SAME`` split is uneven along either axis.  ``k`` is the window,
+    an int or (kh, kw)."""
+    kh, kw = _pair(k)
+    ph = _same_pads(x.shape[2], kh, stride)
+    pw = _same_pads(x.shape[3], kw, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         return x, (ph[0], pw[0])
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
 
 
-def max_pool_same(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """3x3 max pool with TF ``SAME`` padding (padded cells are -inf)."""
-    x, pad = _pad_same(x, 3, stride, value=-math.inf)
-    return F.max_pool2d(x, 3, stride, padding=pad)
+def max_pool_same(x: torch.Tensor, stride: int, k: int = 3) -> torch.Tensor:
+    """k x k max pool with TF ``SAME`` padding (padded cells are -inf)."""
+    x, pad = _pad_same(x, k, stride, value=-math.inf)
+    return F.max_pool2d(x, k, stride, padding=pad)
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -92,21 +98,26 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 
 class Conv(nn.Module):
-    """Conv with TF ``SAME`` padding; ``weight`` [out, in / groups, k, k]
-    (flax's HWIO kernel transposed), lecun-normal as flax's default, and
-    a zero ``bias`` when asked for."""
+    """Conv with TF ``SAME`` (or, with ``padding="VALID"``, no) padding;
+    ``weight`` [out, in / groups, kh, kw] (flax's HWIO kernel transposed),
+    lecun-normal as flax's default, and a zero ``bias`` when asked for.
+    ``k`` is an int or (kh, kw)."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+    def __init__(self, cin: int, cout: int, k, stride: int = 1,
                  groups: int = 1, bias: bool = False,
-                 generator: Generator = None):
+                 generator: Generator = None, padding: str = "SAME"):
         super().__init__()
-        self.k, self.stride, self.groups = k, stride, groups
-        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
-        lecun_normal_(self.weight, cin // groups * k * k, generator)
+        kh, kw = _pair(k)
+        self.k, self.stride, self.groups = (kh, kw), stride, groups
+        self.padding = padding
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kh, kw))
+        lecun_normal_(self.weight, cin // groups * kh * kw, generator)
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, pad = _pad_same(x, self.k, self.stride)
+        pad = (0, 0)
+        if self.padding == "SAME":
+            x, pad = _pad_same(x, self.k, self.stride)
         return F.conv2d(x, self.weight, self.bias, self.stride, pad, 1,
                         self.groups)
 
@@ -233,3 +244,20 @@ class InceptionV2(nn.Module):
         if self.capture_endpoints:
             return pool5, endpoints
         return pool5
+
+
+# ---------------------------------------------------------------------------
+# slim checkpoint grafting (the generic rules are in models/slim_graft.py)
+# ---------------------------------------------------------------------------
+
+def graft_slim_variables(model: nn.Module, slim_vars) -> nn.Module:
+    """Fill ``model`` (an :class:`InceptionV2`) in place from a slim
+    InceptionV2 checkpoint, a {slim variable name: array} dict."""
+    from multimodal_similarity_tpu_torch.models import slim_graft
+    return slim_graft.graft_slim_variables(model, slim_vars, "InceptionV2")
+
+
+def graft_slim_npz(model: nn.Module, path: str) -> nn.Module:
+    """Graft from an .npz of {slim variable name: array}."""
+    from multimodal_similarity_tpu_torch.models import slim_graft
+    return slim_graft.graft_slim_npz(model, path, "InceptionV2")

@@ -2,8 +2,9 @@
 multi-process bootstrap and feeding, the batch-hard and lifted rings and
 the data-parallel triplet step (ROADMAP slice 8c-i), and sharded-gallery
 retrieval (slice 8c-ii; the mesh-sharded device cache and the flagship's
-data-parallel step live beside their single-device versions).  Tensor
-parallelism is slice 8c-iii; the pipelined backbone is slice 9."""
+data-parallel step live beside their single-device versions), and the
+pipelined feature-extraction backbone (slice 9).  Tensor parallelism is
+slice 8c-iii."""
 
 from multimodal_similarity_tpu_torch.parallel.data_parallel import (
     make_dp_triplet_step,
@@ -20,6 +21,12 @@ from multimodal_similarity_tpu_torch.parallel.multihost import (
     initialize_distributed,
     make_global_batch,
     put_global,
+)
+from multimodal_similarity_tpu_torch.parallel.pipeline import (
+    INCEPTION_RESNET_V2_UNIT_COSTS,
+    PipelinedBackbone,
+    profile_unit_costs,
+    split_units_balanced,
 )
 from multimodal_similarity_tpu_torch.parallel.ring_lifted import (
     make_ring_lifted_loss,
@@ -53,4 +60,8 @@ __all__ = [
     "make_global_batch",
     "put_global",
     "host_local_sessions",
+    "PipelinedBackbone",
+    "split_units_balanced",
+    "profile_unit_costs",
+    "INCEPTION_RESNET_V2_UNIT_COSTS",
 ]

@@ -7,9 +7,11 @@ statistics in training mode and use them in validation; any other value
 builds the compact ``ConvBackbone``.  Either way the tower is the model's
 ``InceptionV2`` attribute, so its parameters sit under the scope that
 takes the reference's 0.1x pretrained-branch gradient scale
-(train/state.py ``PRETRAINED_BRANCH_SCOPES``).  Pretrained slim weights
-are not ported (``slim_checkpoint=`` raises; ROADMAP slice 9): the tower
-starts from random weights.
+(train/state.py ``PRETRAINED_BRANCH_SCOPES``).  ``slim_checkpoint=``, an
+.npz of slim InceptionV2 variables, grafts pretrained weights onto the
+InceptionV2 tower (``models/slim_graft.py``; every parameter and running
+statistic, or it raises), as the JAX trainer does; the conv backbone, as
+there, ignores it.  Without it the tower starts from random weights.
 
 Each step takes a class-balanced batch of ``max(batch_size, 32)`` images,
 random ``crop`` x ``crop`` crops (offsets from [0, h - crop] inclusive,
@@ -44,7 +46,8 @@ from torch import nn
 from multimodal_similarity_tpu_torch import resolve_device
 from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.data.cub import sample_cub_batch
-from multimodal_similarity_tpu_torch.models import CUBLayer, InceptionV2
+from multimodal_similarity_tpu_torch.models import (
+    CUBLayer, InceptionV2, graft_slim_npz)
 from multimodal_similarity_tpu_torch.models.inception_v2 import (
     Conv, lecun_normal_)
 from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
@@ -189,10 +192,6 @@ def train(cfg: TrainConfig, data: Optional[dict] = None, crop: int = 56,
     image_test and label_test (else the .npy files of ``cfg.DATA_ROOT``).
     Trains on ``device`` (default ``cuda``; raises when no card is visible
     and the CPU was not asked for)."""
-    if slim_checkpoint:
-        raise NotImplementedError(
-            "slim_checkpoint: grafting pretrained slim weights is not "
-            "ported yet (ROADMAP slice 9)")
     make_cub_loss(cfg, cfg.loss)           # an unknown --loss raises here
     device = resolve_device(device)
     run = CUBRun(cfg, result_dir)
@@ -207,6 +206,8 @@ def train(cfg: TrainConfig, data: Optional[dict] = None, crop: int = 56,
     class_idx = class_index(labels)
 
     model = build_model(cfg, device)
+    if cfg.network == "inception_v2" and slim_checkpoint:
+        graft_slim_npz(model.InceptionV2, slim_checkpoint)
     optimizer = build_optimizer(cfg.optimizer, model, cfg.learning_rate)
     start = run.first_epoch(model, optimizer)
     step_fn = make_cub_step(

@@ -467,12 +467,20 @@ def test_random_crop_offsets_cover_both_ends():
 
 
 def test_base_cub_options_raise(tmp_path, monkeypatch):
-    """A slim checkpoint names slice 9, an unknown --loss raises before
-    any data is read, the tower's parameters take the 0.1x branch scale,
-    and the default device raises when no card is visible."""
-    _, cfg = _cfgs(tmp_path, loss="triplet")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        base_CUB.train(cfg, slim_checkpoint="w.npz", device="cpu")
+    """A slim checkpoint that leaves a tower parameter unset raises (the
+    graft's coverage check), an unknown --loss raises before any data is
+    read, the tower's parameters take the 0.1x branch scale, and the
+    default device raises when no card is visible."""
+    _, cfg = _cfgs(tmp_path, loss="triplet", network="inception_v2")
+    npz = str(tmp_path / "partial.npz")
+    np.savez(npz, **{"InceptionV2/Conv2d_1a_7x7/BatchNorm/beta":
+                     np.zeros(64, np.float32)})
+    images = np.zeros((4, 8, 8, 3), np.float32)
+    data = {"image_train": images, "label_train": np.arange(4) % 2,
+            "image_test": images, "label_test": np.arange(4) % 2}
+    with pytest.raises(KeyError, match="unset"):
+        base_CUB.train(cfg, data=data, crop=8, slim_checkpoint=npz,
+                       result_dir=str(tmp_path / "r"), device="cpu")
     _, bad = _cfgs(tmp_path, loss="npairs")
     with pytest.raises(NotImplementedError, match="npairs"):
         base_CUB.train(bad, device="cpu")
