@@ -242,7 +242,18 @@ Phases, each fatal on failure (no error is caught):
    ``preprocess.segmentation``, ``preprocess.sensors`` and
    ``tools.import_tf1`` through ``python3 -m
    multimodal_similarity_tpu_torch`` on seed-made inputs, each output held
-   to the function run in-process.
+   to the function run in-process;
+22. slice 8c-iii, tensor parallelism (``tp_phase``), on a one-rank NCCL
+   group and the degenerate 1 x 1 data x model mesh (``create_2d_mesh``):
+   ``shard_module_tp`` engages the column-parallel layers at a model group
+   of one (every split layer's output all-gathered); at base_model's
+   width the batch-hard step (K3 or K1 as ``use_triangular`` picks, counted
+   over the step), the normalised lifted step (K6 and K5) and the flagship's
+   fused step at train_multimodal_model.sh's width, each on the sharded
+   model and on the plain one from the same weights and draws (loss and
+   parameters within TP_RTOL of scale), with ms a step of each; the sharded
+   run's ``gather_state_tp`` through a checkpoint into a plain model and
+   back; ``--model_parallel 2`` at world 1 raising JAX's ValueError.
 Then a ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is visible or the port's package is not beside this script.
@@ -5582,6 +5593,271 @@ def features_phase(root):
             "training": training, "dispatch": dispatch}
 
 
+# ---------------------------------------------------------------------------
+# phase 22, slice 8c-iii: tensor parallelism on a one-rank process group
+# ---------------------------------------------------------------------------
+
+# a split model at a model group of one against the plain model: the same
+# products in the same order, so the loss and the parameters agree to
+# rounding (relative to their scale)
+TP_RTOL = 1e-6
+TP_EVENTS = 1000                # the flagship's event budget
+
+
+def tp_model(cfg, tp, device):
+    """(model, optimizer) of ``cfg``'s encoder from fixed seeds on
+    ``device``, split over ``tp`` when given."""
+    import torch
+    from multimodal_similarity_tpu_torch.models import build_encoder
+    from multimodal_similarity_tpu_torch.parallel import shard_module_tp
+    from multimodal_similarity_tpu_torch.train.state import build_optimizer
+    model = build_encoder(
+        cfg.network, num_seg=cfg.num_seg, emb_dim=cfg.emb_dim,
+        n_input=cfg.n_input, n_h=cfg.n_h, n_w=cfg.n_w, n_C=cfg.n_C,
+        keep_prob=cfg.keep_prob, generator=torch.Generator().manual_seed(7),
+        dropout_generator=torch.Generator(device=device).manual_seed(8)
+    ).to(device)
+    opt = build_optimizer("ADAM", model, cfg.learning_rate)
+    if tp is not None and not shard_module_tp(model, tp, opt):
+        fail("p22: shard_module_tp split nothing")
+    return model, opt
+
+
+def whole_params(model, opt):
+    """(parameters, Adam moments) by name, whole (gathered when split)
+    copies."""
+    from multimodal_similarity_tpu_torch.parallel.tensor_parallel import (
+        gather_state_tp, plain_name)
+    state, ostate = gather_state_tp(model, opt)
+    names = {id(p): plain_name(n) for n, p in model.named_parameters()}
+    params = [p for group in opt.param_groups for p in group["params"]]
+    moments = {f"{names[id(params[i])]}.{k}": v.clone()
+               for i, entry in ostate["state"].items()
+               for k, v in entry.items() if k in ("exp_avg", "exp_avg_sq")}
+    return {k: v.clone() for k, v in state.items()}, moments
+
+
+def tp_ms(fn, device):
+    """ms a call: CUDA events around 5 calls after 1 on the card, the
+    host clock elsewhere (a CPU rehearsal)."""
+    if device == "cuda":
+        return call_ms(fn, iters=5, warmup=1)
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def tp_pair(tag, build, run, kernels, card, device):
+    """``run(model, opt)`` on the split model (kernel launches counted over
+    it; a CPU rehearsal's plain versions count none) and on the plain one
+    from the same seeds: the losses and every parameter and moment within
+    TP_RTOL of scale, then ms a step of each (``tp_ms``).  Returns the row
+    of the summary."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+    from multimodal_similarity_tpu_torch.parallel import tensor_parallel
+    gathers = []
+    real = tensor_parallel._all_gather_cat
+
+    def counted(x, dim, mesh):
+        gathers.append(dim)
+        return real(x, dim, mesh)
+
+    out = {}
+    for side in ("tp", "plain"):
+        model, opt = build(side == "tp")
+        reset_launch_counts()
+        tensor_parallel._all_gather_cat = counted
+        try:
+            loss = run(model, opt).detach().clone()
+        finally:
+            tensor_parallel._all_gather_cat = real
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        out[side] = (loss, *whole_params(model, opt), launches, len(gathers))
+        out[side] += (tp_ms(lambda: run(model, opt), device),)
+        gathers.clear()
+        del model, opt
+    (tl, tp_, tm, tk, tg, tms), (pl, pp, pm, pk, pg, pms) = (out["tp"],
+                                                            out["plain"])
+    if not tg or pg:
+        fail(f"p22 {tag}: {tg} column gathers on the split model, {pg} on "
+             "the plain one")
+    for name in kernels if device == "cuda" else ():
+        if not tk.get(name):
+            fail(f"p22 {tag}: {name} not launched on the split model's "
+                 f"step ({tk})")
+    if tk != pk:
+        fail(f"p22 {tag}: launches {tk} on the split model, {pk} plain")
+    rel = rel_close(f"p22 {tag} loss", tl[None], pl[None], TP_RTOL)
+    worst = max(rel_close(f"p22 {tag} {k}", tp_[k], pp[k], TP_RTOL)
+                for k in pp)
+    worst_m = max(rel_close(f"p22 {tag} {k}", tm[k], pm[k], TP_RTOL)
+                  for k in pm)
+    print(f"[p22] {tag} ({card}): loss {float(tl):.6f} split vs "
+          f"{float(pl):.6f} plain (rel {rel:.3g}), worst parameter rel "
+          f"{worst:.3g}, moment rel {worst_m:.3g} (rtol {TP_RTOL}); "
+          f"{tg} column all-gathers; launches {json.dumps(tk)}; "
+          f"{tms:.3f} vs {pms:.3f} ms a step", flush=True)
+    if not float(pl):
+        fail(f"p22 {tag}: a zero loss compares nothing")
+    return {"tp_ms": round(tms, 3), "plain_ms": round(pms, 3),
+            "launches": tk, "loss_rel": rel, "param_rel": worst}
+
+
+def tp_checkpoint_round_trip(root, cfg, tp, device):
+    """One batch-hard step on the split model; its ``gather_state_tp``
+    written as a checkpoint, loaded into a plain model (every parameter and
+    moment equal to the gathered ones), then sharded and gathered again
+    (equal to the file)."""
+    import torch
+    from multimodal_similarity_tpu_torch.parallel import (
+        gather_state_tp, shard_module_tp)
+    from multimodal_similarity_tpu_torch.train.checkpoints import (
+        load_checkpoint, save_checkpoint)
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_model_batchhard)
+    events, labels = tp_batch(cfg, device)
+    model, opt = tp_model(cfg, tp, device)
+    base_model_batchhard.make_balanced_batch_step(model, opt, cfg)(
+        events, labels, cfg.learning_rate)
+    path = os.path.join(root, "p22.ckpt")
+    state = gather_state_tp(model, opt)
+    save_checkpoint(path, model, opt, 1, state)
+    plain, popt = tp_model(cfg, None, device)
+    load_checkpoint(path, plain, popt)
+    for k, v in plain.state_dict().items():
+        if not torch.equal(v, state[0][k]):
+            fail(f"p22: {k} of the loaded checkpoint differs")
+    shard_module_tp(plain, tp, popt)
+    again, oagain = gather_state_tp(plain, popt)
+    file = torch.load(path, map_location=device, weights_only=True)
+    for k, v in file["model"].items():
+        if not torch.equal(again[k], v):
+            fail(f"p22: {k} after load, shard and gather differs")
+    for i, entry in file["optimizer"]["state"].items():
+        for k, v in entry.items():
+            if not torch.equal(oagain["state"][i][k], v):
+                fail(f"p22: moment {i}.{k} after load, shard and gather "
+                     "differs")
+    print("[p22] gather_state_tp -> checkpoint -> plain model -> "
+          "shard_module_tp -> gather_state_tp: every parameter and moment "
+          "equal", flush=True)
+
+
+def tp_batch(cfg, device):
+    """A class-balanced batch at ``cfg``'s width from a seed, on
+    ``device``: ``cfg.batch_size`` events of 8 per class."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(22)
+    events = torch.randn((cfg.batch_size, cfg.num_seg, cfg.n_h, cfg.n_w,
+                          cfg.n_input), device=device, generator=gen)
+    labels = torch.arange(cfg.batch_size, device=device) // 8 + 1
+    return events, labels
+
+
+def tp_flagship(root, tp, card, device):
+    """The flagship's fused step at train_multimodal_model.sh's width on a
+    seeded budget batch of TP_EVENTS events, split and plain."""
+    import torch
+    from multimodal_similarity_tpu_torch.parallel import shard_module_tp
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        multimodal_model)
+    mcfg = full_width_cfg(root, "p22_mm", feat=MM_FEATS,
+                          lambda_multimodal=0.1, multimodal_epochs=0,
+                          num_negative=5, triplet_per_batch=200,
+                          label_num=93, no_joint=True)
+    gen = torch.Generator(device=device).manual_seed(23)
+    n = TP_EVENTS
+    args = [torch.randn((n, mcfg.num_seg, mcfg.n_h, mcfg.n_w, mcfg.n_input),
+                        device=device, generator=gen)]
+    args += [torch.randn((n, mcfg.num_seg) + MM_MODALITIES[m],
+                         device=device, generator=gen)
+             for m in ("sensors", "segment")]
+    args += [torch.randint(0, 12, (n,), device=device, generator=gen),
+             (torch.arange(n, device=device) < n - 40).float()]
+    cm = multimodal_model.margin_table({0: [0.5]}, torch.device(device))
+
+    def build(split):
+        model = multimodal_model.build_model(
+            mcfg, torch.device(device), sensors=MM_MODALITIES["sensors"][0],
+            segment=MM_MODALITIES["segment"][0])
+        opt = multimodal_model.mm_optimizer(mcfg, model)
+        if split:
+            shard_module_tp(model, tp, opt)
+        gen = torch.Generator(device=device).manual_seed(24)
+        step = multimodal_model.make_mm_fused_step(model, opt, mcfg, gen)
+        model.p22_step = lambda: step(*args, cm, 1.0, mcfg.learning_rate)
+        return model, opt
+
+    return tp_pair("flagship fused step", build,
+                   lambda model, opt: model.p22_step()["loss"], (), card,
+                   device)
+
+
+def tp_phase(root, device="cuda"):
+    """Phase 22: a one-rank NCCL group (gloo in a CPU rehearsal, with
+    ``device="cpu"``) and the 1 x 1 data x model mesh; the split
+    batch-hard, lifted and flagship steps against the plain ones, the
+    checkpoint round trip, and --model_parallel 2 at world 1."""
+    import torch
+    import torch.distributed as dist
+    from multimodal_similarity_tpu_torch.ops.kernels import use_triangular
+    from multimodal_similarity_tpu_torch.parallel import create_2d_mesh
+    from multimodal_similarity_tpu_torch.train.trainers import (
+        base_model_batchhard)
+    t0 = time.time()
+    card = card_line() if device == "cuda" else "cpu"
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method=f"file://{os.path.join(root, 'p22_pg')}",
+        world_size=1, rank=0)
+    out = {}
+    try:
+        tp = create_2d_mesh(1, 1)
+        if tp.shape != {"data": 1, "model": 1} or \
+                tp.model.device.type != device:
+            fail(f"p22: mesh {tp.shape} on {tp.model.device}")
+        cfg = full_width_cfg(root, "p22")
+        events, labels = tp_batch(cfg, device)
+        tri = use_triangular(cfg.batch_size, cfg.emb_dim,
+                             sm_count() if device == "cuda" else 132)
+        for kind, kernels in (
+                ("batchhard", ("batch_hard_tri_idx" if tri
+                               else "batch_hard_stats_idx",)),
+                ("lifted", ("lifted_fwd_tri", "lifted_bwd"))):
+            def run(model, opt, kind=kind):
+                step = base_model_batchhard.make_balanced_batch_step(
+                    model, opt, cfg, kind)
+                return step(events, labels, cfg.learning_rate)["loss"]
+
+            out[kind] = tp_pair(
+                f"{kind} step", lambda split: tp_model(
+                    cfg, tp if split else None, device),
+                run, kernels, card, device)
+        del events, labels
+        out["flagship"] = tp_flagship(root, tp, card, device)
+        tp_checkpoint_round_trip(root, cfg, tp, device)
+        try:
+            base_model_batchhard.train(
+                full_width_cfg(root, "p22_mp2", model_parallel=2),
+                device=device)
+        except ValueError as e:
+            if "does not divide the 1 visible devices" not in str(e):
+                raise
+            print(f"[p22] --model_parallel 2 at world 1: ValueError({e})",
+                  flush=True)
+        else:
+            fail("p22: --model_parallel 2 at world 1 did not raise")
+    finally:
+        dist.destroy_process_group()
+    print(f"[p22] phase 22 {time.time() - t0:.1f} s ({card}): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5667,6 +5943,7 @@ def main():
         sharded_phase(root, full_root)
         shutil.rmtree(full_root)
         counted("features", features_phase, root)
+        tp_phase(root)
     # every Honda loader of phases 8-15, 17 and 21 draws TSN segments:
     # each must have taken the native gather
     print(f"[native] gathers and deferrals by phase {json.dumps(gathers)}",

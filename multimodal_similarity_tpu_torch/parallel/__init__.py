@@ -1,10 +1,10 @@
-"""Data parallelism on ``torch.distributed``: the process mesh, the
+"""Parallelism on ``torch.distributed``: the process mesh, the
 multi-process bootstrap and feeding, the batch-hard and lifted rings and
-the data-parallel triplet step (ROADMAP slice 8c-i), and sharded-gallery
+the data-parallel triplet step (ROADMAP slice 8c-i), sharded-gallery
 retrieval (slice 8c-ii; the mesh-sharded device cache and the flagship's
-data-parallel step live beside their single-device versions), and the
-pipelined feature-extraction backbone (slice 9).  Tensor parallelism is
-slice 8c-iii."""
+data-parallel step live beside their single-device versions), tensor
+parallelism over a data x model mesh (slice 8c-iii), and the pipelined
+feature-extraction backbone (slice 9)."""
 
 from multimodal_similarity_tpu_torch.parallel.data_parallel import (
     make_dp_triplet_step,
@@ -41,6 +41,15 @@ from multimodal_similarity_tpu_torch.parallel.sharded_eval import (
     sharded_retrieval_topk,
     sharded_retrieval_topk_quantized,
 )
+from multimodal_similarity_tpu_torch.parallel.tensor_parallel import (
+    TPMesh,
+    auto_mesh_tp,
+    create_2d_mesh,
+    gather_state_tp,
+    shard_module_tp,
+    tp_sharded_leaves,
+    tp_spec_for,
+)
 
 __all__ = [
     "ProcessMesh",
@@ -64,4 +73,11 @@ __all__ = [
     "split_units_balanced",
     "profile_unit_costs",
     "INCEPTION_RESNET_V2_UNIT_COSTS",
+    "TPMesh",
+    "create_2d_mesh",
+    "auto_mesh_tp",
+    "tp_spec_for",
+    "tp_sharded_leaves",
+    "shard_module_tp",
+    "gather_state_tp",
 ]

@@ -9,8 +9,11 @@ rank's device.  Each rank holds the contiguous rows ``[r m, (r + 1) m)`` of
 a global batch of ``n m`` rows, which is how the JAX ``shard_batch`` places
 a batch over a 1-D mesh.  On it run the rings and the data-parallel steps
 (slice 8c-i), the sharded retrieval index, the sharded device cache and
-the flagship's data-parallel step (slice 8c-ii).  There is no multi-axis
-mesh: tensor parallelism is slice 8c-iii.
+the flagship's data-parallel step (slice 8c-ii).  Under tensor parallelism
+(slice 8c-iii, parallel/tensor_parallel.py) a mesh is the data sub-group of
+a data x model mesh: its group is not the default one, so a peer or a
+source is named by its rank in the group and addressed through
+:func:`global_rank`.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import torch.distributed as dist
 
 
 class ProcessMesh(NamedTuple):
-    """The default process group as a 1-D "data" mesh."""
+    """A process group as a 1-D "data" mesh: its size, this process's rank
+    in it, the group (the default group, or a sub-group) and the rank's
+    device."""
 
     size: int
     rank: int
@@ -55,6 +60,14 @@ def group_device() -> torch.device:
 def world_size() -> int:
     """Processes in the default group (1 when none is initialised)."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def global_rank(mesh: ProcessMesh, rank: int) -> int:
+    """The default group's rank of rank ``rank`` of ``mesh``'s group:
+    point-to-point peers and broadcast sources are global ranks."""
+    if mesh.group is None or mesh.group == dist.group.WORLD:
+        return rank
+    return dist.get_global_rank(mesh.group, rank)
 
 
 def create_mesh(n_devices: Optional[int] = None) -> ProcessMesh:
@@ -112,11 +125,11 @@ def shard_batch(batch, mesh: ProcessMesh):
 
 
 def replicate(tree, mesh: ProcessMesh):
-    """Rank 0's value of every tensor in ``tree`` on every rank (an
-    in-place broadcast over the mesh's group); returns ``tree``."""
+    """The value of the mesh's rank 0 of every tensor in ``tree`` on every
+    rank (an in-place broadcast over the mesh's group); returns ``tree``."""
     def bcast(x):
         if isinstance(x, torch.Tensor):
-            dist.broadcast(x, src=0, group=mesh.group)
+            dist.broadcast(x, src=global_rank(mesh, 0), group=mesh.group)
         return x
 
     return map_arrays(bcast, tree)

@@ -32,21 +32,24 @@ import torch.nn.functional as F
 from multimodal_similarity_tpu_torch.ops.chunked_topk import ieee_f32
 from multimodal_similarity_tpu_torch.ops.kernels.batch_hard import (
     winning_pair_grad)
-from multimodal_similarity_tpu_torch.parallel.mesh import ProcessMesh
+from multimodal_similarity_tpu_torch.parallel.mesh import (
+    ProcessMesh, global_rank)
 
 _POS_INF = 1e30
 
 
 def rotate(buf: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
-    """``buf`` sent to rank (r + 1) % n; returns the one rank (r - 1) % n
-    sent (``buf`` itself on a mesh of one)."""
+    """``buf`` sent to rank (r + 1) % n of the mesh; returns the one rank
+    (r - 1) % n sent (``buf`` itself on a mesh of one)."""
     n, r = mesh.size, mesh.rank
     if n == 1:
         return buf
     out = torch.empty_like(buf)
     reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, buf.contiguous(), (r + 1) % n, mesh.group),
-        dist.P2POp(dist.irecv, out, (r - 1) % n, mesh.group)])
+        dist.P2POp(dist.isend, buf.contiguous(),
+                   global_rank(mesh, (r + 1) % n), mesh.group),
+        dist.P2POp(dist.irecv, out, global_rank(mesh, (r - 1) % n),
+                   mesh.group)])
     for req in reqs:
         req.wait()
     return out

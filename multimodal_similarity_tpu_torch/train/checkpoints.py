@@ -22,14 +22,17 @@ from torch import nn
 
 def save_checkpoint(path: str, model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer],
-                    step: int) -> str:
+                    step: int, state: Optional[tuple] = None) -> str:
     """Write-then-rename: a crash mid-write never leaves a truncated file at
-    the final path."""
+    the final path.  ``state``: the (model, optimizer) state dicts to write
+    in place of ``model``'s and ``optimizer``'s (a tensor-parallel run's
+    whole state, ``parallel.tensor_parallel.gather_state_tp``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
-    torch.save({"model": model.state_dict(),
-                "optimizer": (optimizer.state_dict()
-                              if optimizer is not None else None),
+    if state is None:
+        state = (model.state_dict(),
+                 optimizer.state_dict() if optimizer is not None else None)
+    torch.save({"model": state[0], "optimizer": state[1],
                 "step": int(step)}, tmp)
     os.replace(tmp, path)
     return path
@@ -95,8 +98,10 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, model: nn.Module, optimizer, step: int) -> str:
-        path = save_checkpoint(self._path(step), model, optimizer, step)
+    def save(self, model: nn.Module, optimizer, step: int,
+             state: Optional[tuple] = None) -> str:
+        path = save_checkpoint(self._path(step), model, optimizer, step,
+                               state)
         for old in self.all_steps()[: -self.max_to_keep]:
             os.remove(self._path(old))
         return path

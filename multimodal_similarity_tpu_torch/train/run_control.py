@@ -55,12 +55,18 @@ class RunControl:
         return preemption.sync_should_stop(self.guard, self.pcount,
                                            step=step)
 
-    def preempted(self, step: int, save: Callable[[int], None]) -> bool:
+    def preempted(self, step: int, save: Callable[[int], None],
+                  collective_save: bool = False) -> bool:
         """On a preemption signal or a fired watchdog: ``save(step)`` on
         process 0 (so ``--model_path`` resumes with no lost step), report,
-        and return True for the caller to leave its loop."""
+        and return True for the caller to leave its loop.
+        ``collective_save``: ``save`` is a collective that every process
+        calls (a tensor-parallel run gathers its shards; process 0
+        writes)."""
         if not self.stop_requested():
             return False
+        if collective_save and self.pid != 0:
+            save(step)
         preemption.report_preemption(self.name, step, save, self.pid)
         return True
 

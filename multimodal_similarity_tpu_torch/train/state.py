@@ -155,13 +155,19 @@ def l2_regularization(model: nn.Module) -> torch.Tensor:
     """0.5 * sum(w^2) over weight matrices (the reference's
     ``l2_regularizer(1.0)``).  Biases are exempt, and so are the LSTM's
     weights: the reference regularises only its hand-declared matrices, and
-    ``tf.contrib.rnn.LSTMCell`` variables never joined that collection."""
+    ``tf.contrib.rnn.LSTMCell`` variables never joined that collection.  A
+    tensor-parallel shard (parallel/tensor_parallel.py) adds its term summed
+    over its model group: the whole matrix's."""
     total = None
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if "cell" in parts or parts[-1].startswith("b"):
+        shard = getattr(p, "tp_shard", None)
+        leaf = parts[-1] if shard is None else shard.leaf
+        if "cell" in parts or leaf.startswith("b"):
             continue
         term = 0.5 * (p * p).sum()
+        if shard is not None:
+            term = shard.whole_sum(term)
         total = term if total is None else total + term
     if total is None:
         return torch.zeros((), device=next(model.parameters()).device)

@@ -7,7 +7,10 @@ trace, the SIGTERM guard with its checkpoint of the exact step, and the
 ``--watchdog_secs`` hang watchdog.  One or more modalities a loader row.
 On a process mesh (parallel/mesh.py) process 0 owns the checkpoints, the
 projector files and the trace; the others log under ``<name>_proc<pid>``,
-and the stop decision is collective."""
+and the stop decision is collective.  Under tensor parallelism
+(parallel/tensor_parallel.py) the data mesh shards the sessions and the
+cache, ownership stays with the world's process 0, and every rank of its
+model group gathers the split state for its checkpoints."""
 
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from multimodal_similarity_tpu_torch.data.device_cache import (
 from multimodal_similarity_tpu_torch.data.device_feed import device_prefetch
 from multimodal_similarity_tpu_torch.parallel.multihost import (
     host_local_sessions)
+from multimodal_similarity_tpu_torch.parallel.tensor_parallel import (
+    gather_state_tp)
 from multimodal_similarity_tpu_torch.train.cached_steps import (
     dispatch_plan_window)
 from multimodal_similarity_tpu_torch.train.checkpoints import (
@@ -52,7 +57,7 @@ class HondaExperiment:
                  result_dir: Optional[str] = None,
                  limit_label_num: bool = True,
                  val_sessions: Optional[Sequence[str]] = None,
-                 supports_int8: bool = False, mesh=None,
+                 supports_int8: bool = False, mesh=None, tp=None,
                  session_shard: bool = False,
                  loader_seed: Optional[int] = None):
         """``modalities``: the feature names a loader row holds (default
@@ -67,10 +72,18 @@ class HondaExperiment:
         rank of a multi-process run; ``session_shard`` (``--multihost``)
         then loads only this rank's sessions (``host_local_sessions``) with
         the global lockstep batch count, each epoch truncated to it.
-        ``loader_seed`` seeds the loader (default ``cfg.seed``)."""
-        self.mesh = mesh
-        self._pid, self._pcount = ((mesh.rank, mesh.size) if mesh is not None
-                                   else (0, 1))
+        ``tp`` (a parallel.TPMesh) makes it one rank of a data x model
+        mesh: ``mesh`` is then its data mesh (None at a data axis of one),
+        whose rows shard the sessions, and the world's rank owns the
+        artifacts.  ``loader_seed`` seeds the loader (default
+        ``cfg.seed``)."""
+        self.mesh, self.tp = mesh, tp
+        owner = tp.world if tp is not None else mesh
+        self._pid, self._pcount = ((owner.rank, owner.size)
+                                   if owner is not None else (0, 1))
+        # the data rows that shard the sessions and the cache's budget
+        self._row, self._rows = ((mesh.rank, mesh.size) if mesh is not None
+                                 else (0, 1))
         if self._pid > 0:
             # per-process result scratch: process 0 owns the artifacts
             cfg = dataclasses.replace(cfg, name=f"{cfg.name}_proc{self._pid}")
@@ -103,10 +116,10 @@ class HondaExperiment:
         self.labeled_sessions = set(cfg.train_session[: cfg.label_num])
         self.local_set = self.train_set
         self.lockstep = None  # --multihost: every rank's batches an epoch
-        if session_shard and self._pcount > 1:
-            self.local_set = host_local_sessions(self.train_set, self._pid,
-                                                 self._pcount)
-            self.lockstep = ((len(self.train_set) // self._pcount)
+        if session_shard and self._rows > 1:
+            self.local_set = host_local_sessions(self.train_set, self._row,
+                                                 self._rows)
+            self.lockstep = ((len(self.train_set) // self._rows)
                              // cfg.sess_per_batch)
         self.batch_per_epoch = (self.lockstep if self.lockstep is not None
                                 else len(self.local_set)
@@ -117,7 +130,7 @@ class HondaExperiment:
             raise ValueError(
                 f"{len(self.train_set)} train sessions < sess_per_batch="
                 f"{cfg.sess_per_batch}"
-                + (f" x {self._pcount} processes" if self.lockstep is not None
+                + (f" x {self._rows} processes" if self.lockstep is not None
                    else ""))
         self.loader = SessionBatchLoader(
             self.local_set, sess_per_batch=cfg.sess_per_batch,
@@ -154,9 +167,17 @@ class HondaExperiment:
         return self._pid == 0
 
     def save(self, model, optimizer, step: int) -> None:
-        """The epoch checkpoint (process 0 only)."""
-        if self.is_chief:
-            self.ckpt.save(model, optimizer, step)
+        """The epoch checkpoint, written by process 0.  Under tensor
+        parallelism every rank calls it: the ranks of process 0's model
+        group first gather the whole state (``gather_state_tp``), so the
+        file is the one a run without it writes."""
+        if self.tp is None:
+            if self.is_chief:
+                self.ckpt.save(model, optimizer, step)
+        elif self.tp.data.rank == 0:
+            state = gather_state_tp(model, optimizer)
+            if self.is_chief:
+                self.ckpt.save(model, optimizer, step, state)
 
     def preempted(self, step: int, model, optimizer) -> bool:
         """At an epoch's end (after an early stop, or not): on a preemption
@@ -165,7 +186,8 @@ class HondaExperiment:
         caller to leave its loop.  The decision is collective on a mesh."""
         self.flush_logs()  # the queued steps are part of the saved run
         return self.control.preempted(
-            step, lambda s: self.ckpt.save(model, optimizer, s))
+            step, lambda s: self.save(model, optimizer, s),
+            collective_save=self.tp is not None)
 
     def loader_epoch(self):
         """One epoch of loader batches; under ``session_shard`` truncated
@@ -203,7 +225,7 @@ class HondaExperiment:
                 raise ValueError(
                     "--device_cache under --multihost needs the trainer's "
                     "global mesh passed to build_cache")
-            budget = self.event_budget * self._pcount
+            budget = self.event_budget * self._rows
         else:
             mesh = mesh if mesh is not None else self.mesh
             if mesh is not None:

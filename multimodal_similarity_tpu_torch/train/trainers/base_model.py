@@ -38,6 +38,12 @@ K runs K such steps back to back.  On more than one process the cache is
 sharded over the ranks (under --multihost planned from the full session
 list with the global budget) and each rank gathers its own row block.
 
+With --model_parallel N (``facenet`` only, as in JAX) the ranks form a
+data x model mesh (parallel/tensor_parallel.py): the encoder's wide
+weights and their Adam moments are column-sharded over each model group,
+and its data axis takes the place of the processes above (at a data axis
+of one, every rank runs the single-device fused step on the whole batch).
+
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model --DATA_ROOT <dir> --triplet_select facenet ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
 """
@@ -76,7 +82,7 @@ from multimodal_similarity_tpu_torch.train.trainer import (
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
-    import TrainResult, _check_supported, process_mesh
+    import TrainResult, _check_supported, process_mesh, shard_for_tp
 from multimodal_similarity_tpu_torch.utils.logging import (
     write_projector_config, write_projector_embedding)
 
@@ -193,7 +199,8 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
         raise NotImplementedError(
             f"--triplet_select {cfg.triplet_select!r}; expected one of "
             f"{MINERS}")
-    _check_supported(cfg, "base_model", data_parallel=True, multihost=True)
+    _check_supported(cfg, "base_model", data_parallel=True, multihost=True,
+                     tensor_parallel=True)
     if cfg.int8_features and cfg.triplet_select != "facenet":
         raise ValueError("--int8_features requires the device-fed path "
                          "(--triplet_select facenet); the host miners "
@@ -203,26 +210,31 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
                          "(the device-fed fused step)")
     device = resolve_device(device)
     event_budget = event_budget or cfg.event_per_batch
-    mesh = None
+    mesh = tp = None
     if cfg.triplet_select == "facenet":
-        # the budget rounded up to a multiple of the processes
-        mesh, event_budget, device = process_mesh(cfg, event_budget,
-                                                  device)
+        # the budget rounded up to a multiple of the processes (of the
+        # data axis under --model_parallel)
+        mesh, event_budget, device, tp = process_mesh(cfg, event_budget,
+                                                      device)
+    elif cfg.model_parallel > 1:
+        raise ValueError("--model_parallel requires --triplet_select "
+                         "facenet (the jitted device step)")
     elif cfg.multihost or env_world_size() > 1:
         raise NotImplementedError(
             "--multihost requires --triplet_select facenet (the fused "
             "device-mining step; host miners are single-process)")
-    if cfg.multihost and mesh is None:
+    if cfg.multihost and mesh is None and tp is None:
         raise RuntimeError("--multihost needs >= 2 devices across processes")
-    pid = mesh.rank if mesh is not None else 0
-    # --multihost: this rank loads its session shard and its slice of the
-    # budget, with the reference's per-process loader seed
+    # the data row and the data axis (the processes without a model axis)
+    row, rows = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    # --multihost: this rank loads its data row's session shard and its
+    # slice of the budget, with the reference's per-process loader seed
     exp = HondaExperiment(
-        cfg, event_budget=(event_budget // mesh.size if cfg.multihost
+        cfg, event_budget=(event_budget // rows if cfg.multihost
                            else event_budget),
-        result_dir=result_dir, supports_int8=True, mesh=mesh,
+        result_dir=result_dir, supports_int8=True, mesh=mesh, tp=tp,
         session_shard=cfg.multihost,
-        loader_seed=cfg.seed + pid if cfg.multihost else None)
+        loader_seed=cfg.seed + row if cfg.multihost else None)
     init_gen = torch.Generator().manual_seed(cfg.seed)
     drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     mine_gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)
@@ -235,7 +247,17 @@ def train(cfg: TrainConfig, event_budget: Optional[int] = None,
     step_host = 0
     if cfg.model_path:
         step_host = load_checkpoint(cfg.model_path, model, optimizer)
-    if mesh is not None:
+    if tp is not None:
+        replicate([p.data for p in model.parameters()], tp.world)
+        sharded = shard_for_tp(cfg, model, optimizer, tp,
+                               f" (emb_dim {cfg.emb_dim})")
+        if not cfg.silent_mode:
+            print(f"[{cfg.name}] tensor-parallel: {len(sharded)} weight "
+                  f"tensors column-sharded over {cfg.model_parallel} chips")
+            print(f"[{cfg.name}] data-parallel over {rows} devices x "
+                  f"{cfg.model_parallel} model-parallel"
+                  + (f" on {rows} hosts" if cfg.multihost else ""))
+    elif mesh is not None:
         replicate([p.data for p in model.parameters()], mesh)
         if not cfg.silent_mode:
             print(f"[{cfg.name}] data-parallel over {mesh.size} processes"

@@ -25,6 +25,14 @@ selected rows' TSN frames and trains (``make_cached_balanced_step``);
 ``--watchdog_secs``, SIGTERM checkpoint-and-stop) is the experiment's
 (_honda.py).
 
+With --model_parallel N (a process group of N or a multiple of N ranks,
+N dividing each host's ranks) the ranks form a data x model mesh
+(parallel/tensor_parallel.py): the encoder's wide weights and their Adam
+moments are column-sharded over each model group of N consecutive ranks,
+and the data axis takes the place of the processes above.  At a data axis
+of one the loss runs the fused kernels on the whole batch on every rank,
+as one process does; at two or more it rides the ring over the data axis.
+
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard --DATA_ROOT <dir> ...
 (``--device cpu`` runs on the CPU; the default is ``cuda``.)
 """
@@ -57,6 +65,8 @@ from multimodal_similarity_tpu_torch.parallel.ring_lifted import (
     make_ring_lifted_loss)
 from multimodal_similarity_tpu_torch.parallel.ring_mining import (
     make_ring_batch_hard_loss)
+from multimodal_similarity_tpu_torch.parallel.tensor_parallel import (
+    auto_mesh_tp, shard_module_tp, tp_sharded_leaves)
 from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
 from multimodal_similarity_tpu_torch.train.state import (
     apply_gradients, build_optimizer, l2_regularization,
@@ -78,20 +88,22 @@ class TrainResult(NamedTuple):
 
 
 def _check_supported(cfg: TrainConfig, trainer: str, no_cache: bool = False,
-                     data_parallel: bool = False,
-                     multihost: bool = False) -> None:
+                     data_parallel: bool = False, multihost: bool = False,
+                     tensor_parallel: bool = False) -> None:
     """Raise for every option ``trainer`` cannot take.  ``no_cache``: the
     JAX trainer has no cached feed either (and streams there silently), so
     --device_cache raises ValueError (ROADMAP D5).  A trainer without a
     multi-process path in JAX (which ignores --multihost there) raises
     ValueError for --multihost unless ``multihost``, and for a
     ``torchrun`` launch of more than one process unless ``data_parallel``
-    (ROADMAP D6).  --model_parallel is not ported (ROADMAP slice 8c-iii)."""
+    (ROADMAP D6).  One without a tensor-parallel path in JAX (which
+    ignores --model_parallel there) raises ValueError for it unless
+    ``tensor_parallel`` (ROADMAP D8)."""
     if no_cache and cfg.device_cache:
         raise ValueError(f"--device_cache: {trainer} has no cached feed")
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(
-            "--model_parallel is not ported yet (ROADMAP slice 8c-iii)")
+    if cfg.model_parallel > 1 and not tensor_parallel:
+        raise ValueError(
+            f"--model_parallel: {trainer} has no tensor-parallel path")
     if cfg.multihost and not multihost:
         raise ValueError(f"--multihost: {trainer} has no multi-process path")
     if env_world_size() > 1 and not (data_parallel or multihost):
@@ -100,13 +112,16 @@ def _check_supported(cfg: TrainConfig, trainer: str, no_cache: bool = False,
 
 
 def process_mesh(cfg: TrainConfig, batch_axis: int, device: torch.device):
-    """(mesh | None, batch axis rounded to the mesh, device): the process
-    group started from the ``--multihost`` coordinator flags, or else from
-    ``torchrun``'s environment, on the backend ``device`` takes (NCCL on
-    the card); None without one, or with a single process.  On a mesh the
-    device returned is the rank's own (``cuda:<LOCAL_RANK>`` under NCCL):
-    the trainer places everything there, the feed thread included, whose
-    current CUDA device is not the one the main thread was bound to."""
+    """(mesh | None, batch axis rounded to the mesh, device, tp | None):
+    the process group started from the ``--multihost`` coordinator flags,
+    or else from ``torchrun``'s environment, on the backend ``device``
+    takes (NCCL on the card); None without one, or with a single process.
+    On a mesh the device returned is the rank's own (``cuda:<LOCAL_RANK>``
+    under NCCL): the trainer places everything there, the feed thread
+    included, whose current CUDA device is not the one the main thread was
+    bound to.  With --model_parallel N, ``tp`` is the data x model mesh
+    (``auto_mesh_tp``: JAX's checks and rounding to the data axis) and
+    ``mesh`` its data mesh, None at a data axis of one."""
     if cfg.multihost:
         initialize_distributed(
             cfg.coordinator_address or None, cfg.num_processes or None,
@@ -114,12 +129,35 @@ def process_mesh(cfg: TrainConfig, batch_axis: int, device: torch.device):
             backend=backend_for(device))
     else:
         initialize_distributed(backend=backend_for(device))
-    mesh, batch_axis = auto_mesh(batch_axis, verbose=not cfg.silent_mode)
-    if mesh is not None and mesh.device.type != device.type:
+    tp = None
+    if cfg.model_parallel > 1:
+        tp, batch_axis = auto_mesh_tp(batch_axis, cfg.model_parallel,
+                                      verbose=not cfg.silent_mode)
+        mesh, world = (tp.data if tp.data.size > 1 else None), tp.world
+    else:
+        mesh, batch_axis = auto_mesh(batch_axis,
+                                     verbose=not cfg.silent_mode)
+        world = mesh
+    if world is not None and world.device.type != device.type:
         raise ValueError(f"the process group's backend runs on "
-                         f"{mesh.device.type}; the trainer's device is "
+                         f"{world.device.type}; the trainer's device is "
                          f"{device}")
-    return mesh, batch_axis, (device if mesh is None else mesh.device)
+    return mesh, batch_axis, (device if world is None else world.device), tp
+
+
+def shard_for_tp(cfg: TrainConfig, model, optimizer, tp, detail: str = ""
+                 ) -> list:
+    """Column-shard ``model`` and ``optimizer``'s state over ``tp``'s
+    model groups (``shard_module_tp``, after ``replicate``); raises JAX's
+    ValueError when no parameter splits (``detail`` closes its first
+    clause).  Returns the split leaves."""
+    mp = cfg.model_parallel
+    if not tp_sharded_leaves(model, mp):
+        raise ValueError(
+            f"--model_parallel {mp}: no parameter has a trailing dim "
+            f"divisible by {mp}{detail}; tensor parallelism would be a "
+            "silent no-op")
+    return shard_module_tp(model, tp, optimizer)
 
 
 def make_loss(cfg: TrainConfig, loss_kind: str,
@@ -257,15 +295,17 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
     # the validation loss is the trainer's own objective; an unknown loss
     # kind raises here, before any data is read
     val_loss_fn = make_loss(cfg, loss_kind)
-    _check_supported(cfg, f"base_model_{loss_kind}", data_parallel=True)
+    _check_supported(cfg, f"base_model_{loss_kind}", data_parallel=True,
+                     tensor_parallel=True)
     device = resolve_device(device)
     # under torchrun: every rank draws the same global balanced batch and
-    # trains on its rows of it (ROADMAP D6)
+    # trains on its rows of it (ROADMAP D6); under --model_parallel the
+    # rows are its data row's
     batch_size = cfg.batch_size if cfg.batch_size > 8 else 64
-    mesh, batch_size, device = process_mesh(cfg, batch_size, device)
+    mesh, batch_size, device, tp = process_mesh(cfg, batch_size, device)
     exp = HondaExperiment(cfg, event_budget=event_budget,
                           result_dir=result_dir, supports_int8=True,
-                          mesh=mesh)
+                          mesh=mesh, tp=tp)
     init_gen = torch.Generator().manual_seed(cfg.seed)
     drop_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     model = build_encoder(cfg.network, num_seg=cfg.num_seg,
@@ -277,11 +317,19 @@ def train(cfg: TrainConfig, loss_kind: str = "batchhard",
     step_host = 0
     if cfg.model_path:
         step_host = load_checkpoint(cfg.model_path, model, optimizer)
-    if mesh is not None:
-        replicate([p.data for p in model.parameters()], mesh)
+    if tp is not None:
+        replicate([p.data for p in model.parameters()], tp.world)
+        sharded = shard_for_tp(cfg, model, optimizer, tp,
+                               f" (emb_dim {cfg.emb_dim})")
         if not cfg.silent_mode:
-            print(f"[{cfg.name}] {loss_kind} data-parallel over "
-                  f"{mesh.size} processes (ring)")
+            print(f"[{cfg.name}] {loss_kind}: {len(sharded)} weight "
+                  f"tensors column-sharded over {cfg.model_parallel} "
+                  f"chips x {tp.data.size}-way data parallel")
+    elif mesh is not None:
+        replicate([p.data for p in model.parameters()], mesh)
+    if mesh is not None and not cfg.silent_mode:
+        print(f"[{cfg.name}] {loss_kind} data-parallel over "
+              f"{mesh.size} processes (ring)")
 
     embed_fn = make_embed_fn(model, cfg.normalized)
     step_fn = make_balanced_batch_step(model, optimizer, cfg, loss_kind,

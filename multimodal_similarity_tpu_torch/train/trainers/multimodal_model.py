@@ -44,6 +44,14 @@ projector files.  The host miners are single-process: ``--multihost``
 without ``--device_mining`` raises, as in JAX.  No CUDA kernel of
 ``csrc/`` is on either path.
 
+With ``--device_mining`` and --model_parallel N the ranks form a data x
+model mesh (parallel/tensor_parallel.py): the whole state (the core, the
+branch encoders and the PDDM heads, with their Adam moments) is
+column-sharded over each model group, and its data axis takes the place
+of the processes above (at a data axis of one, every rank runs the
+single-device fused step).  Without ``--device_mining`` the flag raises,
+as in JAX.
+
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.multimodal_model --DATA_ROOT <dir> --feat resnet,sensors,segment --sensors_path <ckpt> --segment_path <ckpt> ...
 (``--device_mining`` for the fused step; ``--device cpu`` runs on the CPU;
 the default is ``cuda``.)
@@ -97,7 +105,7 @@ from multimodal_similarity_tpu_torch.train.trainers._honda import (
 from multimodal_similarity_tpu_torch.train.trainers._loop import (
     loader_batches)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
-    import TrainResult, _check_supported, process_mesh
+    import TrainResult, _check_supported, process_mesh, shard_for_tp
 
 BRANCHES = ("modality_sensors", "modality_segment")
 # the flagship's mining thresholds and hard triplets an anchor
@@ -528,7 +536,8 @@ def train(cfg: TrainConfig, hard_only: bool = False,
         raise NotImplementedError(
             "--multihost requires --device_mining (the fused step; host "
             "miners are single-process)")
-    _check_supported(cfg, name, data_parallel=device_mining, multihost=True)
+    _check_supported(cfg, name, data_parallel=device_mining, multihost=True,
+                     tensor_parallel=True)
     if cfg.int8_features and not device_mining:
         raise ValueError("--int8_features requires --device_mining (the "
                          "device-fed path); the host miners gather dense "
@@ -538,24 +547,29 @@ def train(cfg: TrainConfig, hard_only: bool = False,
                          "fused device-fed step)")
     device = resolve_device(device)
     event_budget = event_budget or cfg.event_per_batch
-    mesh = None
+    mesh = tp = None
     if device_mining:
-        # the budget rounded up to a multiple of the processes; on a mesh
-        # the rank's own device
-        mesh, event_budget, device = process_mesh(cfg, event_budget, device)
-    if cfg.multihost and mesh is None:
+        # the budget rounded up to a multiple of the processes (of the data
+        # axis under --model_parallel); on a mesh the rank's own device
+        mesh, event_budget, device, tp = process_mesh(cfg, event_budget,
+                                                      device)
+    elif cfg.model_parallel > 1:
+        raise ValueError("--model_parallel requires --device_mining "
+                         "(the fused jitted step)")
+    if cfg.multihost and mesh is None and tp is None:
         raise RuntimeError("--multihost needs >= 2 devices across processes")
+    rows = mesh.size if mesh is not None else 1
     modalities = cfg.feat if isinstance(cfg.feat, list) else \
         ["resnet", "sensors", "segment"]
     # --multihost: this rank loads its session shard into its slice of the
     # budget, for the global lockstep batch count
     exp = HondaExperiment(cfg, modalities=modalities,
                           supports_int8=device_mining,
-                          event_budget=(event_budget // mesh.size
+                          event_budget=(event_budget // rows
                                         if cfg.multihost else event_budget),
                           result_dir=result_dir,
                           limit_label_num=(cfg.task == "supervised"),
-                          mesh=mesh, session_shard=cfg.multihost)
+                          mesh=mesh, tp=tp, session_shard=cfg.multihost)
     model = build_model(cfg, device, sensors=exp.val_extra[0].shape[-1],
                         segment=exp.val_extra[1].shape[-1])
     for scope, path in zip(BRANCHES, (cfg.sensors_path, cfg.segment_path)):
@@ -565,7 +579,14 @@ def train(cfg: TrainConfig, hard_only: bool = False,
     step_host = 0
     if cfg.model_path:
         step_host = load_checkpoint(cfg.model_path, model, optimizer)
-    if mesh is not None:
+    if tp is not None:
+        replicate([p.data for p in model.parameters()], tp.world)
+        shard_for_tp(cfg, model, optimizer, tp)
+        if not cfg.silent_mode:
+            print(f"[{cfg.name}] data-parallel fused step over {rows} "
+                  f"devices x {cfg.model_parallel} model-parallel"
+                  + (f" on {rows} hosts" if cfg.multihost else ""))
+    elif mesh is not None:
         replicate([p.data for p in model.parameters()], mesh)
         if not cfg.silent_mode:
             print(f"[{cfg.name}] data-parallel fused step over {mesh.size} "

@@ -584,9 +584,11 @@ def test_cli_runs_on_cpu(tmp_path, name):
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch):
     """On the flagship: --multihost without --device_mining raises JAX's
     NotImplementedError, and with it but no process group JAX's
-    RuntimeError; --model_parallel raises NotImplementedError naming slice
-    8c-iii.  --multihost raises D6's ValueError on the weak trainer (no
-    multi-process path in JAX);
+    RuntimeError; --model_parallel 2 raises JAX's ValueErrors (without
+    --device_mining: it requires it; with it and no process group: the
+    model axis does not divide the one visible device).  --multihost
+    raises D6's ValueError on the weak trainer (no multi-process path in
+    JAX);
     --device_cache without --device_mining, or with --bf16_features, and
     --int8_features without --device_mining raise ValueError on the
     flagship, --device_cache (D5) and --int8_features on the weak trainer;
@@ -604,8 +606,11 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="needs >= 2 devices"):
         multimodal_model.train(cfg(multihost=True), device="cpu",
                                device_mining=True)
-    for device_mining in (False, True):
-        with pytest.raises(NotImplementedError, match="slice 8c-iii"):
+    for device_mining, match in (
+            (False, "--model_parallel requires --device_mining"),
+            (True, "--model_parallel 2 does not divide the 1 visible "
+             "devices")):
+        with pytest.raises(ValueError, match=match):
             multimodal_model.train(cfg(model_parallel=2), device="cpu",
                                    device_mining=device_mining)
     with pytest.raises(ValueError, match="--multihost: multimodal_model_weak "

@@ -335,7 +335,7 @@ def test_cli_runs_on_cpu(tmp_path, name):
 @pytest.mark.parametrize("name", list(CLIS))
 def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
     """--multihost raises D6's ValueError (no multi-process path in JAX),
-    --model_parallel NotImplementedError naming slice 8c-ii, and
+    --model_parallel D8's ValueError (no tensor-parallel path in JAX), and
     --watchdog_secs arms the watchdog, which each step beats and the end
     of the run cancels unfired; --device_cache raises D5's ValueError (the
     JAX trainer has no cached feed), --int8_features raises ValueError, and
@@ -351,7 +351,8 @@ def test_options_and_missing_gpu_raise(tmp_path, monkeypatch, name):
     with pytest.raises(ValueError, match=f"--multihost: {name} has no "
                        "multi-process path"):
         module.train(cfg(multihost=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8c-ii"):
+    with pytest.raises(ValueError, match=f"--model_parallel: {name} has no "
+                       "tensor-parallel path"):
         module.train(cfg(model_parallel=2), device="cpu")
     beats = []
     real_beat = StepWatchdog.beat

@@ -197,9 +197,10 @@ def test_checkpoint_round_trip_and_pruning(tmp_path):
 def test_unported_flags_raise(tmp_path, flag, value, slice_no):
     """The slice-8 flags on the batch-hard trainer: --multihost raises
     ROADMAP D6's ValueError (the JAX trainer has no multi-process path),
-    --model_parallel NotImplementedError naming slice 8c-ii; --profile_dir
-    and --watchdog_secs run (slice 8b): a one-epoch run writes the
-    step-window trace, or arms the watchdog and cancels it unfired."""
+    --model_parallel 2 without a process group JAX's ValueError (the model
+    axis does not divide the one visible device); --profile_dir and
+    --watchdog_secs run (slice 8b): a one-epoch run writes the step-window
+    trace, or arms the watchdog and cancels it unfired."""
     if flag == "multihost":
         cfg = _cfg(TrainConfig, DATA_ROOT=str(tmp_path), **{flag: value})
         with pytest.raises(ValueError, match="--multihost: "
@@ -208,7 +209,8 @@ def test_unported_flags_raise(tmp_path, flag, value, slice_no):
         return
     if flag == "model_parallel":
         cfg = _cfg(TrainConfig, DATA_ROOT=str(tmp_path), **{flag: value})
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}c-ii"):
+        with pytest.raises(ValueError, match="--model_parallel 2 does not "
+                           "divide the 1 visible devices"):
             base_model_batchhard.train(cfg, device="cpu")
         return
     root = str(tmp_path / "data")
