@@ -3758,6 +3758,7 @@ def pretrain_phase(root, full_root):
     from multimodal_similarity_tpu_torch.data import native
     from multimodal_similarity_tpu_torch.ops.kernels import (
         LAUNCHES, reset_launch_counts)
+    from multimodal_similarity_tpu_torch.utils import profiling
 
     t_phase = time.time()
     reset_launch_counts()
@@ -3766,7 +3767,8 @@ def pretrain_phase(root, full_root):
     chain = pretrain_chain(full_root)
     tf = tf_phase(root)
     expect_launches("pretrain", dict(LAUNCHES), dict.fromkeys(LAUNCHES, 0))
-    print(f"[pretrain] native counts over phase 16 {json.dumps(native.COUNTS)}"
+    counts = json.dumps(profiling.counters("native."))
+    print(f"[pretrain] native counts over phase 16 {counts}"
           f"; native {json.dumps(times)}; chain seconds "
           f"{json.dumps({k: v['s'] for k, v in chain.items()})}; tf "
           f"{json.dumps(tf)}; phase 16 {time.time() - t_phase:.1f} s",
@@ -4433,6 +4435,7 @@ def cache_phase(root, full_root):
         HondaExperiment)
     from multimodal_similarity_tpu_torch.train.trainers._loop import (
         loader_batches)
+    from multimodal_similarity_tpu_torch.utils import profiling
 
     t_phase = time.time()
     none = dict.fromkeys(LAUNCHES, 0)
@@ -4548,8 +4551,9 @@ def cache_phase(root, full_root):
                               device_cache_gb=CACHE_GB, **kw)
         res, got, n_val, _, _, _ = drive_trainer(
             full_root, f"cache-{tag}", train_fn, rcfg)
-        if device_cache.COUNTS != {"build": 1, "gather": res.step}:
-            fail(f"cache-{tag}: cache counts {device_cache.COUNTS} for "
+        counts = profiling.counters("cache.")
+        if counts != {"build": 1, "gather": res.step}:
+            fail(f"cache-{tag}: cache counts {counts} for "
                  f"{res.step} steps")
         if tag == "bh":
             tri = use_triangular(rcfg.batch_size, rcfg.emb_dim, sm_count())
@@ -4589,8 +4593,9 @@ def cache_phase(root, full_root):
         res, got, cols = drive_plain(root, f"cache-{tag}", train_fn, ocfg,
                                      (key,))
         expect_launches(f"cache-{tag}", got, none)
-        if device_cache.COUNTS != {"build": 1, "gather": res.step}:
-            fail(f"cache-{tag}: cache counts {device_cache.COUNTS} for "
+        counts = profiling.counters("cache.")
+        if counts != {"build": 1, "gather": res.step}:
+            fail(f"cache-{tag}: cache counts {counts} for "
                  f"{res.step} steps")
         print(f"[cache-{tag}] {res.step} cached steps, {key} "
               f"{[round(v, 6) for v in cols[key]]}", flush=True)
@@ -5879,6 +5884,7 @@ def main():
 
     from multimodal_similarity_tpu_torch.data import native
     from multimodal_similarity_tpu_torch.ops.kernels._build import build
+    from multimodal_similarity_tpu_torch.utils import profiling
     t0 = time.time()
     logs = build()
     print(f"[build] {len(logs)} CUDA source(s) built in "
@@ -5921,7 +5927,7 @@ def main():
         """``phase(*args)`` with the native gather's counts over it."""
         native.reset_counts()
         out = phase(*args)
-        gathers[tag] = dict(native.COUNTS)
+        gathers[tag] = profiling.counters("native.")
         return out
 
     with tempfile.TemporaryDirectory(dir=scratch) as root:

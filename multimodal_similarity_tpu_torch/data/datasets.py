@@ -30,6 +30,7 @@ from multimodal_similarity_tpu_torch.data.honda import (
 )
 from multimodal_similarity_tpu_torch.data import native
 from multimodal_similarity_tpu_torch.data import tsn as _tsn
+from multimodal_similarity_tpu_torch.utils.profiling import count
 
 
 def modality_suffix(feat: str) -> str:
@@ -150,7 +151,7 @@ def load_data_and_label(
     Returns (events [N, ...], labels [N, 1] int32, boundaries [(s, e)]).
     ``preprocess_func`` maps a [length, ...] frame window to a [1, ...] model
     input (e.g. TSN segment sampling); a TSN sampler's sessions take the
-    native gather, counted in ``native.COUNTS``.
+    native gather, counted as ``native.gather``.
     """
     if preprocess_func is None:
         preprocess_func = lambda x: x  # noqa: E731
@@ -161,9 +162,9 @@ def load_data_and_label(
 
     fast = _load_events_tsn_native(feats, label, preprocess_func, transfer)
     if fast is not None:
-        native.count("gather")
+        count("native.gather")
         return fast
-    native.count("gather_deferred")
+    count("native.gather_deferred")
 
     events, labels, boundary = [], [], []
     for i in range(len(label["G"])):

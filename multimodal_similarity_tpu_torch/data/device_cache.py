@@ -25,8 +25,9 @@ cache's notice and the trainer keeps the streaming feed.  The estimate
 counts ``max_frames`` (45) frames an event, as the reference's does, though
 the resident arrays hold ``t_eff`` frames (ROADMAP §3).  On a process mesh
 (``mesh``) each rank holds one shard of the sessions and gathers its own
-row block of every batch (``DeviceFeatureCache``).  ``COUNTS`` counts
-builds and gathers.
+row block of every batch (``DeviceFeatureCache``).  The counters
+``cache.build`` and ``cache.gather`` (utils/profiling.py) count builds and
+gathers.
 """
 
 from __future__ import annotations
@@ -43,9 +44,8 @@ from multimodal_similarity_tpu_torch.data.device_feed import (
 from multimodal_similarity_tpu_torch.data.honda import (
     LABEL_TRANSFER, MAX_LENGTH, MIN_LENGTH, MIN_LENGTH_BACKGROUND)
 from multimodal_similarity_tpu_torch.data.tsn import tsn_sample_offsets
-
-# cache builds and gathers since the last reset (chip_smoke.py reads them)
-COUNTS = {"build": 0, "gather": 0}
+from multimodal_similarity_tpu_torch.utils import profiling
+from multimodal_similarity_tpu_torch.utils.profiling import count, span
 
 # events staged per quantize pass: the f32 temporaries stay small (64
 # ConvRTSN events of 6 x 8x8x1536 f32 are 150 MB)
@@ -53,8 +53,9 @@ _CHUNK = 64
 
 
 def reset_counts() -> None:
-    for key in COUNTS:
-        COUNTS[key] = 0
+    """Set the cache's counters, ``cache.build`` and ``cache.gather``,
+    to 0."""
+    profiling.reset_counts("cache.", ("build", "gather"))
 
 
 def _session_events(label_path: str) -> List[Tuple[int, int, int]]:
@@ -372,7 +373,7 @@ class DeviceFeatureCache:
         self.device_bytes = int(sum(
             t.numel() * t.element_size()
             for t in (*self.q, *self.scale, self.seq_len, self.label_dev)))
-        COUNTS["build"] += 1
+        count("cache.build")
         return self
 
     # -- the epoch plan -----------------------------------------------------
@@ -474,61 +475,64 @@ class DeviceFeatureCache:
         routed from the ranks that hold them in one all-to-all a tensor
         (parallel/data_parallel.py ``gather_rows``), with their labels and
         mask."""
-        COUNTS["gather"] += 1
-        n, budget = self.n_shards, self.event_budget
-        per = budget // n
-        plan = packed.view(n, per + 1)
-        ids = plan[:, :-1].long()
-        valid = (torch.arange(per, device=ids.device)[None, :]
-                 < plan[:, -1:]).to(torch.float32)
-        base = torch.arange(n, device=ids.device)[:, None] * self.shard_rows
-        labels = (self.label_dev[ids + base]
-                  * valid.to(torch.int32)).reshape(-1)
-        mask = valid.reshape(-1)
-        indices = ids[self.rank]
-        lens = self.seq_len[indices]
-        sel = rows if self.mesh is None else None
-        block = slice(self.rank * per, (self.rank + 1) * per)
-        t = self.max_frames
-        modes = self.modality_modes or ("tsn",) * self.num_modalities
-        out = []
-        for m, mode in enumerate(modes):
-            q, scale = self.q[m], self.scale[m]
-            if mode == "meanpool":
-                idx = indices if sel is None else indices[sel]
-                n_len = lens if sel is None else lens[sel]
-                # f32 accumulation: the int8 storage is the only
-                # approximation of the streamed f32 mean
-                x = (q.index_select(0, idx).to(torch.float32)
-                     * scale.index_select(0, idx))
-                tail = (1,) * (x.ndim - 2)
-                frames = (torch.arange(t, device=idx.device)[None, :]
-                          < n_len[:, None]).to(torch.float32)
-                denom = torch.clamp(n_len.to(torch.float32), min=1.0)
-                out.append((x * frames.reshape(frames.shape + tail)).sum(1)
-                           / denom.reshape((-1,) + tail))
-                continue
-            # every TSN modality draws its own offsets, as the streamed
-            # loader's prepare calls do; drawn for the whole batch
-            offs = tsn_sample_offsets(generator, lens, self.n_seg,
-                                      rows=(budget, block))
-            flat = indices[:, None] * t + offs
-            if sel is not None:
-                flat = flat[sel]
-            flat = flat.reshape(-1)
-            out.append({
-                "q": q.reshape((-1,) + q.shape[2:]).index_select(
-                    0, flat).reshape((-1, self.n_seg) + q.shape[2:]),
-                "scale": scale.reshape((-1,) + scale.shape[2:]).index_select(
-                    0, flat).reshape((-1, self.n_seg) + scale.shape[2:])})
-        if rows is not None:
-            if self.mesh is not None:
-                from multimodal_similarity_tpu_torch.parallel.data_parallel \
-                    import gather_rows, share
-                out = [gather_rows(o, rows, self.mesh, per) for o in out]
-                rows = rows[share(rows.shape[0], self.mesh)]
-            labels, mask = labels[rows], mask[rows]
-        return tuple(out), labels, mask
+        count("cache.gather")
+        with span("cache.gather"):
+            n, budget = self.n_shards, self.event_budget
+            per = budget // n
+            plan = packed.view(n, per + 1)
+            ids = plan[:, :-1].long()
+            valid = (torch.arange(per, device=ids.device)[None, :]
+                     < plan[:, -1:]).to(torch.float32)
+            base = (torch.arange(n, device=ids.device)[:, None]
+                    * self.shard_rows)
+            labels = (self.label_dev[ids + base]
+                      * valid.to(torch.int32)).reshape(-1)
+            mask = valid.reshape(-1)
+            indices = ids[self.rank]
+            lens = self.seq_len[indices]
+            sel = rows if self.mesh is None else None
+            block = slice(self.rank * per, (self.rank + 1) * per)
+            t = self.max_frames
+            modes = self.modality_modes or ("tsn",) * self.num_modalities
+            out = []
+            for m, mode in enumerate(modes):
+                q, scale = self.q[m], self.scale[m]
+                if mode == "meanpool":
+                    idx = indices if sel is None else indices[sel]
+                    n_len = lens if sel is None else lens[sel]
+                    # f32 accumulation: the int8 storage is the only
+                    # approximation of the streamed f32 mean
+                    x = (q.index_select(0, idx).to(torch.float32)
+                         * scale.index_select(0, idx))
+                    tail = (1,) * (x.ndim - 2)
+                    frames = (torch.arange(t, device=idx.device)[None, :]
+                              < n_len[:, None]).to(torch.float32)
+                    denom = torch.clamp(n_len.to(torch.float32), min=1.0)
+                    out.append((x * frames.reshape(frames.shape + tail)).sum(1)
+                               / denom.reshape((-1,) + tail))
+                    continue
+                # every TSN modality draws its own offsets, as the streamed
+                # loader's prepare calls do; drawn for the whole batch
+                offs = tsn_sample_offsets(generator, lens, self.n_seg,
+                                          rows=(budget, block))
+                flat = indices[:, None] * t + offs
+                if sel is not None:
+                    flat = flat[sel]
+                flat = flat.reshape(-1)
+                out.append({
+                    "q": q.reshape((-1,) + q.shape[2:]).index_select(
+                        0, flat).reshape((-1, self.n_seg) + q.shape[2:]),
+                    "scale": scale.reshape(
+                        (-1,) + scale.shape[2:]).index_select(0, flat).reshape(
+                            (-1, self.n_seg) + scale.shape[2:])})
+            if rows is not None:
+                if self.mesh is not None:
+                    from multimodal_similarity_tpu_torch.parallel.\
+                        data_parallel import gather_rows, share
+                    out = [gather_rows(o, rows, self.mesh, per) for o in out]
+                    rows = rows[share(rows.shape[0], self.mesh)]
+                labels, mask = labels[rows], mask[rows]
+            return tuple(out), labels, mask
 
     def epoch_batches(self, generator: torch.Generator):
         """One epoch of gathered batches (the two-call path): each plan

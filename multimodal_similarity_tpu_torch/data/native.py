@@ -13,7 +13,7 @@ message: no caller falls back to Python because the library is missing.
 What does fall back is data the native code does not take (features that
 are not f32 or not C-contiguous, a prepare function that is not a TSN
 sampler, a record whose key is missing or whose frame width differs): the
-callers count each native call and each deferral in ``COUNTS``.
+callers count each native call and each deferral (``PATHS``).
 Nothing here runs at import time.
 """
 
@@ -26,37 +26,31 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from multimodal_similarity_tpu_torch.utils import profiling
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCE = PKG_DIR / "csrc" / "msim_native.cc"
 BUILD_DIR = PKG_DIR / "_build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
-# calls by path, shared by the callers: ``gather`` a session whose events
-# took the native TSN gather, ``gather_deferred`` one that took the
-# per-event Python loop; ``parse`` a TFRecord batch parsed natively,
-# ``parse_deferred`` one parsed in Python
-COUNTS: Dict[str, int] = {"gather": 0, "gather_deferred": 0, "parse": 0,
-                          "parse_deferred": 0}
+# calls by path, counted in the counter registry (utils/profiling.py) as
+# ``native.<path>`` by the callers, from their threads: ``gather`` a
+# session whose events took the native TSN gather, ``gather_deferred`` one
+# that took the per-event Python loop; ``parse`` a TFRecord batch parsed
+# natively, ``parse_deferred`` one parsed in Python
+PATHS = ("gather", "gather_deferred", "parse", "parse_deferred")
 
 _LOCK = threading.Lock()
 _LIB = None
 
 
-def count(key: str) -> None:
-    """Add one to ``COUNTS[key]`` (the loaders call it from their
-    threads)."""
-    with _LOCK:
-        COUNTS[key] += 1
-
-
 def reset_counts() -> None:
-    with _LOCK:
-        for key in COUNTS:
-            COUNTS[key] = 0
+    """Set every path's counter to 0."""
+    profiling.reset_counts("native.", PATHS)
 
 
 def library_path() -> Path:

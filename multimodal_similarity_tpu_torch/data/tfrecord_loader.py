@@ -7,7 +7,8 @@ sequence lengths (the ConvLSTM input), loaded on a background thread.  A
 batch is parsed by the native library's thread pool when every one of its
 events parses there; otherwise (a missing key, another frame width, a
 corrupt record) the whole batch is parsed in Python, which raises on what
-it cannot read.  ``native.COUNTS`` counts the batches of each path.
+it cannot read.  The counters ``native.parse`` and
+``native.parse_deferred`` count the batches of each path.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from multimodal_similarity_tpu_torch.data.tfrecords import (
     parse_sequence_example,
     read_tfrecord,
 )
+from multimodal_similarity_tpu_torch.utils.profiling import count
 
 
 def list_event_tfrecords(tfrecords_root: str,
@@ -83,9 +85,9 @@ class EventTFRecordLoader:
             paths, self.feat_name, self.max_time, self.feat_dim,
             out=(feats[:n], seq_len[:n], labels[:n]))
         if ok == n:
-            native.count("parse")
+            count("native.parse")
         else:
-            native.count("parse_deferred")
+            count("native.parse_deferred")
             for i, p in enumerate(paths):
                 feats[i], seq_len[i], labels[i] = self._load_event(p)
         return {"features": feats, "seq_len": seq_len, "labels": labels,

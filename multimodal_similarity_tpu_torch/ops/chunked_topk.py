@@ -23,6 +23,7 @@ import contextlib
 import torch
 
 from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
+from multimodal_similarity_tpu_torch.utils.profiling import span
 
 _POS_INF = 1e30
 
@@ -64,14 +65,18 @@ def smallest_k(d: torch.Tensor, k: int):
 def _merge(best_d, best_i, d, start: int, k: int):
     """Top-k of [best so far, chunk distances ``d`` of gallery rows start,
     start + 1, ...]."""
-    best_d_new, pos = smallest_k(torch.cat([best_d, d], dim=1), k)
-    from_best = best_i.gather(1, pos.clamp(max=k - 1))
-    return best_d_new, torch.where(pos < k, from_best, pos - k + start)
+    with span("topk.select"):
+        best_d_new, pos = smallest_k(torch.cat([best_d, d], dim=1), k)
+        from_best = best_i.gather(1, pos.clamp(max=k - 1))
+        return best_d_new, torch.where(pos < k, from_best, pos - k + start)
 
 
 def _init(nq: int, k: int, device):
-    return (torch.full((nq, k), _POS_INF, dtype=torch.float32, device=device),
-            torch.full((nq, k), -1, dtype=torch.int64, device=device))
+    """The running top-k before the first chunk: no row yet."""
+    with span("topk.select"):
+        return (torch.full((nq, k), _POS_INF, dtype=torch.float32,
+                           device=device),
+                torch.full((nq, k), -1, dtype=torch.int64, device=device))
 
 
 def split_bf16_inner(q: torch.Tensor, g16: torch.Tensor) -> torch.Tensor:
@@ -98,7 +103,9 @@ def chunked_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int = 32,
     best_d, best_i = _init(q.shape[0], k, q.device)
     with ieee_f32():
         for start in range(0, gallery.shape[0], chunk):
-            d = pairwise_distance(q, gallery[start:start + chunk], metric)
+            with span("topk.product"):
+                d = pairwise_distance(q, gallery[start:start + chunk],
+                                      metric)
             best_d, best_i = _merge(best_d, best_i, d, start, k)
     return best_d, best_i
 
@@ -124,11 +131,12 @@ def chunked_topk_quantized(queries: torch.Tensor, q_gallery: torch.Tensor,
     best_d, best_i = _init(q.shape[0], k, q.device)
     for start in range(0, q_gallery.shape[0], chunk):
         stop = start + chunk
-        inner = split_bf16_inner(
-            q, q_gallery[start:stop].to(torch.bfloat16))
-        d = torch.clamp(xsq + gsq[None, start:stop]
-                        - 2.0 * s[None, start:stop] * inner, min=0.0)
-        if metric == "euclidean":
-            d = torch.sqrt(d)
+        with span("topk.product"):
+            inner = split_bf16_inner(
+                q, q_gallery[start:stop].to(torch.bfloat16))
+            d = torch.clamp(xsq + gsq[None, start:stop]
+                            - 2.0 * s[None, start:stop] * inner, min=0.0)
+            if metric == "euclidean":
+                d = torch.sqrt(d)
         best_d, best_i = _merge(best_d, best_i, d, start, k)
     return best_d, best_i

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multimodal_similarity_tpu_torch.utils.profiling import span
+
 
 def _load_frames(frame_dir: str):
     try:
@@ -141,21 +143,29 @@ def slim_backbone(name: str = "inception_resnet_v2",
         return pipelined
 
     def embed_fn(batch: np.ndarray) -> np.ndarray:
-        n = batch.shape[0]
-        if batch_pad:
-            m = 1
-            while m < n:
-                m *= 2
-            if m != n:
-                batch = np.concatenate(
-                    [batch, np.zeros((m - n,) + batch.shape[1:],
-                                     batch.dtype)])
-        with torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
-            out = model(pre(x))
-            if nhwc:
-                out = out.permute(0, 2, 3, 1)
-            return out[:n].float().cpu().numpy()
+        with span("features.embed", unit=True):
+            n = batch.shape[0]
+            with span("features.pad"):
+                if batch_pad:
+                    m = 1
+                    while m < n:
+                        m *= 2
+                    if m != n:
+                        batch = np.concatenate(
+                            [batch, np.zeros((m - n,) + batch.shape[1:],
+                                             batch.dtype)])
+                batch = np.ascontiguousarray(batch)
+            with torch.inference_mode():
+                with span("features.upload"):
+                    x = torch.from_numpy(batch).to(dev)
+                with span("features.resize"):
+                    x = pre(x)
+                with span("features.trunk"):
+                    out = model(x)
+                with span("features.readback"):
+                    if nhwc:
+                        out = out.permute(0, 2, 3, 1)
+                    return out[:n].float().cpu().numpy()
 
     embed_fn.model = model
     return embed_fn

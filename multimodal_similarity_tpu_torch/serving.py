@@ -40,6 +40,7 @@ from multimodal_similarity_tpu_torch.parallel.sharded_eval import (
     sharded_retrieval_topk, sharded_retrieval_topk_quantized)
 from multimodal_similarity_tpu_torch.train.steps import (
     embed_in_chunks, make_embed_fn)
+from multimodal_similarity_tpu_torch.utils.profiling import span
 
 
 class EmbeddingService:
@@ -320,8 +321,10 @@ class RetrievalIndex:
         if len(self) > self.gallery_chunk:
             return chunked_topk(q, gallery, k=k, chunk=self.gallery_chunk,
                                 metric=self.metric)
-        with ieee_f32():
-            return smallest_k(pairwise_distance(q, gallery, self.metric), k)
+        with ieee_f32(), span("topk.product"):
+            d = pairwise_distance(q, gallery, self.metric)
+        with span("topk.select"):
+            return smallest_k(d, k)
 
     def query(self, queries: np.ndarray, k: int = 10
               ) -> Tuple[np.ndarray, np.ndarray, list]:
@@ -333,12 +336,17 @@ class RetrievalIndex:
         index (never returned while k is clamped) would map to None."""
         if not len(self):
             raise ValueError("empty gallery")
-        queries = np.asarray(queries, np.float32)
-        if queries.ndim == 1:
-            queries = queries[None, :]
-        d, idx = self._topk(self._upload(queries), min(k, len(self)))
-        d = d.cpu().numpy()
-        idx = idx.cpu().numpy()
-        meta = [[self._meta[j] if j < len(self._meta) else None
-                 for j in row] for row in idx]
+        with span("serving.query", unit=True):
+            queries = np.asarray(queries, np.float32)
+            if queries.ndim == 1:
+                queries = queries[None, :]
+            with span("serving.upload"):
+                q = self._upload(queries)
+            d, idx = self._topk(q, min(k, len(self)))
+            with span("serving.readback"):
+                d = d.cpu().numpy()
+                idx = idx.cpu().numpy()
+            with span("serving.meta"):
+                meta = [[self._meta[j] if j < len(self._meta) else None
+                         for j in row] for row in idx]
         return d, idx, meta

@@ -33,6 +33,7 @@ from multimodal_similarity_tpu_torch.parallel.data_parallel import (
     make_dp_triplet_step)
 from multimodal_similarity_tpu_torch.train.steps import (
     make_triplet_train_step)
+from multimodal_similarity_tpu_torch.utils.profiling import span
 
 
 def make_cached_triplet_step(model, optimizer, cache, *,
@@ -90,5 +91,10 @@ def dispatch_plan_window(win: Sequence[np.ndarray], learning_rate: float, *,
                          fused: Callable, device) -> List[dict]:
     """One window of host plans through the fused step ``fused(plan on the
     device, learning_rate)``, issued back to back.  Returns one
-    device-scalars dict a step, in step order."""
-    return [fused(upload_plans(plan, device), learning_rate) for plan in win]
+    device-scalars dict a step, in step order; each step, its plan's
+    upload included, is a unit of the spans (``trainer.step``)."""
+    out = []
+    for plan in win:
+        with span("trainer.step", unit=True):
+            out.append(fused(upload_plans(plan, device), learning_rate))
+    return out

@@ -46,6 +46,7 @@ from multimodal_similarity_tpu_torch.utils.logging import (
     MetricsLogger,
     write_projector_metadata,
 )
+from multimodal_similarity_tpu_torch.utils.profiling import span
 
 
 class HondaExperiment:
@@ -259,7 +260,8 @@ class HondaExperiment:
         polled after each window.  Returns the new step count."""
         k = self.cfg.steps_per_dispatch
         if plans is None:
-            plans = [p["packed"] for p in cache.epoch_plans()]
+            with span("cache.plan"):
+                plans = [p["packed"] for p in cache.epoch_plans()]
         for start in range(0, len(plans), k):
             win = plans[start:start + k]
             t0 = time.time()

@@ -106,6 +106,8 @@ from multimodal_similarity_tpu_torch.train.trainers._loop import (
     loader_batches)
 from multimodal_similarity_tpu_torch.train.trainers.base_model_batchhard \
     import TrainResult, _check_supported, process_mesh, shard_for_tp
+from multimodal_similarity_tpu_torch.utils.profiling import (
+    count, recording, span)
 
 BRANCHES = ("modality_sensors", "modality_segment")
 # the flagship's mining thresholds and hard triplets an anchor
@@ -318,37 +320,41 @@ def _mm_update(model: nn.Module, optimizer, cfg: TrainConfig, tri_events,
     ``mesh`` ``tri_events`` is this rank's ``share`` of the rows: the
     embeddings are gathered into the one global loss, this rank's rows
     take its gradient, and the gradients are summed over the ranks."""
-    core = model["modality_core"]
-    core.train()
-    optimizer.zero_grad(set_to_none=True)
-    n_rows = 3 * mask_lab.shape[0]
-    if mesh is None:
-        emb = core(tri_events)
-    else:
-        with Dropout.global_rows(n_rows, share(n_rows, mesh)):
+    with span("mm.forward_loss"):
+        core = model["modality_core"]
+        core.train()
+        optimizer.zero_grad(set_to_none=True)
+        n_rows = 3 * mask_lab.shape[0]
+        if mesh is None:
             emb = core(tri_events)
-    if cfg.normalized:
-        emb = l2_normalize(emb)
-    if mesh is not None:
-        emb = gather_shares(emb, n_rows, mesh)
-    tri = emb.reshape(mask_lab.shape[0], 3, -1)
-    a, p, n = tri[:, 0], tri[:, 1], tri[:, 2]
-    loss1 = triplet_loss_masked(a, p, n, mask_lab, cfg.alpha)
-    loss2 = triplet_loss_masked(a, p, n, mask_hard, cfg.alpha)
-    basic = torch.clamp(((a - p) ** 2).sum(1) - ((a - n) ** 2).sum(1)
-                        + margins, min=0.0)
-    loss3 = (basic * mask_struct).sum() / torch.clamp(mask_struct.sum(),
-                                                      min=1.0)
-    total = loss1 + (loss2 + loss3 * 0.3) * cfg.lambda_multimodal
-    reg = cfg.lambda_l2 * l2_regularization(model) if cfg.lambda_l2 else None
-    if mesh is None:
-        (total if reg is None else total + reg).backward()
-    else:
-        backward_once(total, reg, mesh)
-        sum_gradients(model, mesh)
-    if reg is not None:
-        total = total + reg
-    apply_gradients(optimizer, learning_rate)
+        else:
+            with Dropout.global_rows(n_rows, share(n_rows, mesh)):
+                emb = core(tri_events)
+        if cfg.normalized:
+            emb = l2_normalize(emb)
+        if mesh is not None:
+            emb = gather_shares(emb, n_rows, mesh)
+        tri = emb.reshape(mask_lab.shape[0], 3, -1)
+        a, p, n = tri[:, 0], tri[:, 1], tri[:, 2]
+        loss1 = triplet_loss_masked(a, p, n, mask_lab, cfg.alpha)
+        loss2 = triplet_loss_masked(a, p, n, mask_hard, cfg.alpha)
+        basic = torch.clamp(((a - p) ** 2).sum(1) - ((a - n) ** 2).sum(1)
+                            + margins, min=0.0)
+        loss3 = (basic * mask_struct).sum() / torch.clamp(mask_struct.sum(),
+                                                          min=1.0)
+        total = loss1 + (loss2 + loss3 * 0.3) * cfg.lambda_multimodal
+        reg = (cfg.lambda_l2 * l2_regularization(model) if cfg.lambda_l2
+               else None)
+    with span("mm.backward"):
+        if mesh is None:
+            (total if reg is None else total + reg).backward()
+        else:
+            backward_once(total, reg, mesh)
+            sum_gradients(model, mesh)
+        if reg is not None:
+            total = total + reg
+    with span("mm.optimizer"):
+        apply_gradients(optimizer, learning_rate)
     return {"loss": total.detach(), "metric_loss1": loss1.detach(),
             "metric_loss2": loss2.detach(), "metric_loss3": loss3.detach()}
 
@@ -364,6 +370,12 @@ def fused_similarity(model: nn.Module, eve_sensors: torch.Tensor,
             out.append(score_all_pairs_sym(model[scope]["pddm"].score, emb,
                                            block=min(128, emb.shape[0])))
     return 0.5 * (out[0] + out[1])
+
+
+def _caps(cfg: TrainConfig):
+    """The fused step's triplets a step: (semi-hard, hard, structure)."""
+    return (cfg.triplet_per_batch, cfg.triplet_per_batch,
+            cfg.triplet_per_batch // 2)
 
 
 def make_mm_fused_step(model: nn.Module, optimizer, cfg: TrainConfig,
@@ -393,8 +405,7 @@ def make_mm_fused_step(model: nn.Module, optimizer, cfg: TrainConfig,
     sliced, so every random stream is the one device's.
     ``gather_smalls`` (``--multihost``): labels and mask arrive as this
     rank's rows too and are all-gathered first."""
-    hard_cap = cfg.triplet_per_batch
-    struct_cap = cfg.triplet_per_batch // 2
+    _, hard_cap, struct_cap = _caps(cfg)
     core_embed = make_embed_fn(model["modality_core"], cfg.normalized)
 
     def gathered(x):
@@ -404,47 +415,55 @@ def make_mm_fused_step(model: nn.Module, optimizer, cfg: TrainConfig,
              use_multimodal: float, learning_rate: float):
         if mesh is not None and gather_smalls:
             labels, mask = gathered(labels), gathered(mask)
-        lab = mine_semihard_triplets_from_embeddings(
-            gathered(core_embed(dequant_features(events))), labels,
-            generator, cfg.triplet_per_batch, alpha=cfg.alpha,
-            num_negative=cfg.num_negative, valid=mask, metric=cfg.metric)
+        with span("mm.embed"):
+            emb = gathered(core_embed(dequant_features(events)))
+        with span("mm.mine_semihard"):
+            lab = mine_semihard_triplets_from_embeddings(
+                emb, labels, generator, cfg.triplet_per_batch,
+                alpha=cfg.alpha, num_negative=cfg.num_negative, valid=mask,
+                metric=cfg.metric)
         with torch.no_grad():
-            embs = [gathered(model[s]["encoder"](dequant_features(x)))
-                    for s, x in zip(BRANCHES, (eve_sensors, eve_segment))]
+            with span("mm.branches"):
+                embs = [gathered(model[s]["encoder"](dequant_features(x)))
+                        for s, x in zip(BRANCHES, (eve_sensors, eve_segment))]
 
             def sim_rows(rows):
-                return 0.5 * sum(score_rows(model[s]["pddm"].score, e, rows)
-                                 for s, e in zip(BRANCHES, embs))
+                with span("mm.pddm"):
+                    return 0.5 * sum(
+                        score_rows(model[s]["pddm"].score, e, rows)
+                        for s, e in zip(BRANCHES, embs))
 
-            mul = mine_hard_structure_triplets_rowwise(
-                sim_rows, labels, class_margins, generator,
-                hard_budget=hard_cap, struct_budget=struct_cap,
-                threshold_up=THRESHOLD_UP, threshold_down=THRESHOLD_DOWN,
-                valid=mask)
+            with span("mm.mine_rowwise"):
+                mul = mine_hard_structure_triplets_rowwise(
+                    sim_rows, labels, class_margins, generator,
+                    hard_budget=hard_cap, struct_budget=struct_cap,
+                    threshold_up=THRESHOLD_UP, threshold_down=THRESHOLD_DOWN,
+                    valid=mask)
         lab_t = lab.anchor.shape[0]
 
         def zeros(k):
             return torch.zeros(k, device=lab.mask.device)
 
-        gather = torch.cat([
-            torch.stack([lab.anchor, lab.positive, lab.negative],
-                        dim=1).reshape(-1),
-            mul.hard.reshape(-1), mul.struct.reshape(-1)])
-        mm = mul.hard_mask * use_multimodal
-        sm = (torch.zeros_like(mul.struct_mask) if hard_only
-              else mul.struct_mask * use_multimodal)
-        if mesh is None:
-            tri_events = take_features(events, gather)
-        else:
-            rows = events["q"] if isinstance(events, dict) else events
-            tri_events = gather_rows(events, gather, mesh, rows.shape[0])
-        aux = _mm_update(
-            model, optimizer, cfg, dequant_features(tri_events),
-            torch.cat([lab.mask, zeros(hard_cap + struct_cap)]),
-            torch.cat([zeros(lab_t), mm, zeros(struct_cap)]),
-            torch.cat([zeros(lab_t + hard_cap), sm]),
-            torch.cat([zeros(lab_t + hard_cap), mul.margins]),
-            learning_rate, mesh)
+        with span("mm.take"):
+            gather = torch.cat([
+                torch.stack([lab.anchor, lab.positive, lab.negative],
+                            dim=1).reshape(-1),
+                mul.hard.reshape(-1), mul.struct.reshape(-1)])
+            mm = mul.hard_mask * use_multimodal
+            sm = (torch.zeros_like(mul.struct_mask) if hard_only
+                  else mul.struct_mask * use_multimodal)
+            if mesh is None:
+                tri_events = take_features(events, gather)
+            else:
+                rows = events["q"] if isinstance(events, dict) else events
+                tri_events = gather_rows(events, gather, mesh, rows.shape[0])
+            tri_events = dequant_features(tri_events)
+            masks = (torch.cat([lab.mask, zeros(hard_cap + struct_cap)]),
+                     torch.cat([zeros(lab_t), mm, zeros(struct_cap)]),
+                     torch.cat([zeros(lab_t + hard_cap), sm]),
+                     torch.cat([zeros(lab_t + hard_cap), mul.margins]))
+        aux = _mm_update(model, optimizer, cfg, tri_events, *masks,
+                         learning_rate, mesh)
         aux.update(triplet_count=lab.mask.sum(), hard_count=mm.sum(),
                    struct_count=sm.sum(), active_count=lab.active_count)
         return aux
@@ -519,7 +538,17 @@ def rank_batches(exp: HondaExperiment, mesh=None, multihost: bool = False):
         yield b
 
 
-def _echo(cfg, epoch, step, loss, tri, hard, struct):
+def _echo(cfg, epoch, step, loss, tri, hard, struct, fused=True):
+    """A step's echo line.  While a profile records, the fused step's
+    (``fused``) mined triplets that fired are counted (``mm.semihard_fired``,
+    ``mm.hard_fired``, ``mm.struct_fired``) against the rows it pads every
+    miner to (``mm.triplet_budget``: ``triplet_per_batch`` semi-hard, as
+    many hard and half as many structure triplets a step)."""
+    if fused and recording():
+        count("mm.semihard_fired", tri)
+        count("mm.hard_fired", hard)
+        count("mm.struct_fired", struct)
+        count("mm.triplet_budget", sum(_caps(cfg)))
     return (f"[{cfg.name}] epoch {epoch + 1} step {step} loss {loss:.4f} "
             f"tri/hard/struct {tri:.0f}/{hard:.0f}/{struct:.0f}")
 
@@ -639,7 +668,8 @@ def train(cfg: TrainConfig, hard_only: bool = False,
 
     def echo(e, s, sc):
         return _echo(cfg, e, s, sc["loss"], sc["triplet_count"],
-                     sc["hard_count"], sc["struct_count"])
+                     sc["hard_count"], sc["struct_count"],
+                     fused=device_mining)
 
     metrics = {}
     exp.open_feed(device, rank_batches(exp, mesh, cfg.multihost), keys,

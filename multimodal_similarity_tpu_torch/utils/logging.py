@@ -10,6 +10,8 @@ import sys
 import time
 from typing import Dict
 
+from multimodal_similarity_tpu_torch.utils.profiling import span
+
 
 class MetricsLogger:
     """Appends one JSON record per ``log`` call to
@@ -65,14 +67,20 @@ class DeferredStepLogs:
         return False
 
     def flush(self) -> None:
-        pending, self._pending = self._pending, []
-        for step, dev, host, echo_fn, at in pending:
-            scalars = {k: float(v) for k, v in dev.items()}
-            if host:
-                scalars.update({k: float(v) for k, v in host.items()})
-            self.logger.log(step, scalars, at=at)
-            if echo_fn is not None and self.echo:
-                print(echo_fn(scalars))
+        """Read back and log every queued step; each step's
+        ``echo_fn(scalars)`` is called and its line printed unless the
+        echo is off."""
+        with span("trainer.flush"):
+            pending, self._pending = self._pending, []
+            for step, dev, host, echo_fn, at in pending:
+                scalars = {k: float(v) for k, v in dev.items()}
+                if host:
+                    scalars.update({k: float(v) for k, v in host.items()})
+                self.logger.log(step, scalars, at=at)
+                if echo_fn is not None:
+                    line = echo_fn(scalars)
+                    if self.echo:
+                        print(line)
 
     def close(self) -> None:
         """Best-effort flush for crash epilogues: when a step raised, the

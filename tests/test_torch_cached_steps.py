@@ -54,6 +54,7 @@ from multimodal_similarity_tpu_torch.train.trainers import (
     base_model, base_model_batchhard, base_model_lifted, cross_prediction,
     multimodal_model, multitask_model, pairsim_model, pddm_model,
     unimodal_pretrain_sae)
+from multimodal_similarity_tpu_torch.utils import profiling
 
 BUDGET = 48
 TRIPLETS = dict(triplet_per_batch=12, num_negative=3, alpha=0.2)
@@ -287,7 +288,7 @@ def test_batchhard_epoch_matches_jax(tmp_path, monkeypatch, pinned, kind, k):
     (got_loss, got_map), (want_loss, want_map), steps = _one_epoch_pair(
         tmp_path, port, jax_train, device_cache=True, steps_per_dispatch=k)
     assert steps == len(want_loss) == 3
-    assert device_cache.COUNTS == {"build": 1, "gather": 3}
+    assert profiling.counters("cache.") == {"build": 1, "gather": 3}
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
     np.testing.assert_allclose(got_map, want_map, atol=1e-3)
 
@@ -382,7 +383,7 @@ def test_cross_prediction_epoch_matches_jax(tmp_path, monkeypatch, pinned):
                                  device="cpu")
     got, want = _records(res.result_dir), _records(jax_dir)
     assert res.step == len(_column(want, "mse")) == 3
-    assert device_cache.COUNTS == {"build": 1, "gather": 3}
+    assert profiling.counters("cache.") == {"build": 1, "gather": 3}
     for key in ("loss", "mse"):
         assert all(np.isfinite(_column(got, key)))
         np.testing.assert_allclose(_column(got, key), _column(want, key),
@@ -427,7 +428,7 @@ def test_other_trainers_run_cached(tmp_path, name):
     losses = _column(recs, key)
     assert res.step == len(losses) == 3
     assert all(np.isfinite(losses))
-    assert device_cache.COUNTS == {"build": 1, "gather": 3}
+    assert profiling.counters("cache.") == {"build": 1, "gather": 3}
     assert all(np.isfinite(v) for v in res.metrics.values())
 
 

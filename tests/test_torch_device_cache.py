@@ -20,6 +20,7 @@ from multimodal_similarity_tpu.data.datasets import (
     prepare_multimodal_dataset)
 from multimodal_similarity_tpu_torch.data import device_cache, tsn
 from multimodal_similarity_tpu_torch.parallel import create_mesh
+from multimodal_similarity_tpu_torch.utils import profiling
 
 N_SEG = 3
 MODALITIES = ["resnet", "sensors", "segment"]
@@ -112,7 +113,7 @@ def test_resident_arrays_match_jax(dataset, workers, max_frames):
     with windows cut at 12 frames; the build is counted."""
     device_cache.reset_counts()
     got, want = _builds(dataset, workers=workers, max_frames=max_frames)
-    assert device_cache.COUNTS["build"] == 1
+    assert profiling.counters("cache.")["build"] == 1
     assert got.max_frames == want.max_frames == min(
         max_frames, int(got.seq_len.max()))
     assert got.max_frames < 40
@@ -192,7 +193,7 @@ def test_gather_matches_jax(dataset, monkeypatch):
         assert torch.equal(rg[0]["q"], gg[0]["q"][rows])
         assert torch.equal(rg[2]["scale"], gg[2]["scale"][rows])
         assert torch.equal(rg[1], gg[1][rows])
-    assert device_cache.COUNTS["gather"] == 6
+    assert profiling.counters("cache.")["gather"] == 6
 
 
 def test_epoch_batches_two_call_path(dataset):

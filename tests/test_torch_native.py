@@ -25,6 +25,7 @@ from multimodal_similarity_tpu_torch.data import tfrecord_loader as tfl
 from multimodal_similarity_tpu_torch.data import tfrecords as tfr
 from multimodal_similarity_tpu_torch.data.synthetic import (
     generate_synthetic_honda)
+from multimodal_similarity_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -126,7 +127,7 @@ def test_gather_segments_bounds_and_shape_checks(rng):
 
 
 def test_counts_lose_no_update_across_threads(monkeypatch):
-    """16 threads adding to ``COUNTS`` at once, with the interpreter
+    """16 threads adding to a counter at once, with the interpreter
     switching threads every microsecond: no update is lost."""
     import threading
     native.reset_counts()
@@ -134,7 +135,7 @@ def test_counts_lose_no_update_across_threads(monkeypatch):
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(
-            target=lambda: [native.count("gather") for _ in range(2000)])
+            target=lambda: [profiling.count("native.gather") for _ in range(2000)])
             for _ in range(16)]
         for t in threads:
             t.start()
@@ -143,7 +144,7 @@ def test_counts_lose_no_update_across_threads(monkeypatch):
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(switch)
-    assert native.COUNTS["gather"] == 16 * 2000
+    assert profiling.counters("native.")["gather"] == 16 * 2000
 
 
 # ---------------------------------------------------------------------------
@@ -202,12 +203,12 @@ def test_load_matches_python_loop_and_jax(tmp_path, monkeypatch, rng,
             functools.partial(jax_tsn.tsn_prepare_input_test, 3)]
     native.reset_counts()
     got = datasets.load_data_and_label(feat_path, label_path, preps[0])
-    assert native.COUNTS["gather"] == 1
+    assert profiling.counters("native.")["gather"] == 1
     want_jax = jax_datasets.load_data_and_label(feat_path, label_path,
                                                 preps[2])
     _python_path(monkeypatch)
     want = datasets.load_data_and_label(feat_path, label_path, preps[1])
-    assert native.COUNTS["gather_deferred"] == 1
+    assert profiling.counters("native.")["gather_deferred"] == 1
     assert got[0].shape == (4, 3) + frame_shape
     _assert_same(got, want)
     _assert_same(got, want_jax)
@@ -235,7 +236,7 @@ def test_loader_batches_take_the_native_gather(tmp_path, monkeypatch):
     got = epochs(SessionBatchLoader(
         rows, prepare_funcs=[functools.partial(tsn.tsn_prepare_input, 3)],
         **kw))
-    assert native.COUNTS == {"gather": 8, "gather_deferred": 0, "parse": 0,
+    assert profiling.counters("native.") == {"gather": 8, "gather_deferred": 0, "parse": 0,
                              "parse_deferred": 0}
     want_jax = epochs(JaxSBL(
         rows, prepare_funcs=[functools.partial(jax_tsn.tsn_prepare_input,
@@ -271,8 +272,8 @@ def test_deferrals_and_errors_follow_the_python_loop(tmp_path, rng):
     assert gen_a.randint(1 << 30) == gen_b.randint(1 << 30)
     datasets.load_data_and_label(feat_path, label_path,
                                  functools.partial(tsn.rnn_prepare_input, 9))
-    assert native.COUNTS["gather_deferred"] == 2
-    assert native.COUNTS["gather"] == 0
+    assert profiling.counters("native.")["gather_deferred"] == 2
+    assert profiling.counters("native.")["gather"] == 0
 
     feat_path, label_path = _session(tmp_path, rng)
     with pytest.raises(NotImplementedError, match="too short"):
@@ -396,12 +397,12 @@ def test_event_loader_matches_jax_on_both_parse_paths(tmp_path,
         want = epochs(jax_tfl.EventTFRecordLoader, feat, dim)
         native.reset_counts()
         got = epochs(tfl.EventTFRecordLoader, feat, dim)
-        assert native.COUNTS["parse"] == len(got) == len(want)
+        assert profiling.counters("native.")["parse"] == len(got) == len(want)
         with monkeypatch.context() as m:
             m.setattr(native, "native_load_event_batch",
                       lambda *a, **k: (None, None, None, 0))
             python = epochs(tfl.EventTFRecordLoader, feat, dim)
-        assert native.COUNTS["parse_deferred"] == len(python)
+        assert profiling.counters("native.")["parse_deferred"] == len(python)
         for g, p, w in zip(got, python, want):
             for key in ("features", "seq_len", "labels", "mask",
                         "num_events"):

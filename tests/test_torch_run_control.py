@@ -1,4 +1,4 @@
-"""The port's run control (``utils/timing.py``, ``utils/profiling.py``,
+"""The port's run control (``utils/profiling.py``,
 ``utils/watchdog.py``, ``utils/preemption.py`` and their wiring into the
 trainers) against the JAX package's: the scenarios of the JAX package's
 ``tests/test_utils.py`` on the port's copies, the trainers' stop at the
@@ -28,8 +28,7 @@ from multimodal_similarity_tpu_torch.train.checkpoints import load_checkpoint
 from multimodal_similarity_tpu_torch.train.state import build_optimizer
 from multimodal_similarity_tpu_torch.train.trainer import validate
 from multimodal_similarity_tpu_torch.utils import (
-    StepTimer, StepWatchdog, device_memory_stats, preemption, profiling,
-    time_fn)
+    StepWatchdog, preemption, profiling)
 from multimodal_similarity_tpu_torch.utils.preemption import PreemptionGuard
 from multimodal_similarity_tpu_torch.utils.watchdog import (
     install_hang_watchdog)
@@ -38,25 +37,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 # -- the classes --------------------------------------------------------
-
-
-def test_step_timer_and_time_fn():
-    """Named phases accumulate, ``sync_on`` registers a value produced in
-    the body, ``reset`` hands the durations over; ``time_fn`` times a
-    call."""
-    t = StepTimer()
-    with t.phase("load"):
-        time.sleep(0.01)
-    with t.phase("train") as ph:
-        ph.sync_on({"loss": torch.ones(2) * 2})
-        time.sleep(0.005)
-    with t.phase("train", block_on=[torch.zeros(1)]):
-        pass
-    out = t.reset()
-    assert out["load"] >= 0.01 and out["train"] >= 0.005
-    assert t.reset() == {}
-    assert time_fn(lambda x: x * 2, torch.ones(8), reps=2) >= 0
-    assert device_memory_stats("cpu") is None
 
 
 def test_step_watchdog_fires_and_cancels():
@@ -110,14 +90,6 @@ def test_step_window_profiler_resume_relative(monkeypatch, tmp_path):
     interrupted.close()              # an open window is written on close
     assert interrupted.trace_path.endswith("trace_steps2-2.pt.trace.json")
     assert profiling.StepWindowProfiler("", num_steps=3)._done
-
-
-def test_trace_writes_chrome_trace(tmp_path):
-    """``trace`` records the block and writes a Chrome trace."""
-    with profiling.trace(str(tmp_path)) as path:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    with open(path) as f:
-        assert json.load(f)["traceEvents"]
 
 
 def test_preemption_guard_signal_and_restore():
