@@ -33,7 +33,15 @@ Phases, each fatal on failure (no error is caught):
    at three shapes and a ragged one TMA needs padded (777x501x90),
    duplicate rows included; kernel, plain, library and bound times; the
    public ``sqdist`` at the three shapes as its path, with its launch
-   count;
+   count; then the fused top-k (``sqdist_topk``, ``topk_phase``) against
+   its plain version, the walk, at the retrieval cell's shape (1024 x
+   400,000 x 128, k = 10), one 65,536-row chunk, one query, k = 64 at a
+   ragged depth and gallery, k = 1 and duplicate rows (distance gaps under
+   TOPK_GAP; index sets and orders equal where the float64 neighbours are
+   apart; the lowest copy first; zero distances never -0.0), on padded
+   shards (rows equal to the walk's), timed beside its bound, the walk and
+   ``torch.topk`` over the whole distance matrix; ``RetrievalIndex.query``
+   with one launch and one ``topk.fused`` a call, the int8 gallery a walk;
 7. lifted kernels: K4 (``lifted_fwd``), K5 (``lifted_bwd``) and K6
    (``lifted_fwd_tri``; all three f32 on 3xTF32 tensor cores, bf16 on FMA)
    against their plain PyTorch versions on the card, at the trainer's
@@ -155,7 +163,8 @@ Phases, each fatal on failure (no error is caught):
    TFRecords written from the trainers' directory (a native-parsed batch
    against the Python parse, the metrics against the NumPy oracle, the
    steady step); no launch of any ``csrc/`` kernel;
-17. slice 7 (serving) with no launch of any ``csrc/`` kernel:
+17. slice 7 (serving) with no launch of a ``csrc/`` kernel but the fused
+   top-k of the f32 index queries:
    ``EmbeddingService`` at ConvRTSN full width (phase 15's hallucination
    core) on requests of 256 events, f32, int8 quantized on the host and
    int8 quantized beforehand (ms a request), card vs CPU on 32 events;
@@ -211,7 +220,8 @@ Phases, each fatal on failure (no error is caught):
    semi-hard step at base_model's width (loss and parameters rtol 1e-5),
    and ``sync_should_stop``'s all-reduce over NCCL;
 20. slice 8c-ii on a one-rank NCCL group (``sharded_phase``), with no
-   launch of any ``csrc/`` kernel: ``RetrievalIndex`` on the mesh at phase
+   launch of a ``csrc/`` kernel but the fused top-k of the f32 index
+   queries: ``RetrievalIndex`` on the mesh at phase
    17's sizes against the index without one (f32 and int8 at 65,536 rows
    index-equal, distances within SH_INDEX_RTOL; f32 at 400,000 rows by
    ``same_topk``), each query's ms beside the unsharded one's; the
@@ -914,6 +924,246 @@ def sqdist_phase():
     return row, worst, launches
 
 
+# the retrieval benchmark's limit on topk_gap and index_gap
+# (perfbench/traffic/retrieval_400k.json): the fused top-k is held to it
+TOPK_GAP = 2e-5
+# (name, queries, gallery rows, depth, k, metric): the retrieval cell's
+# shape, one 65,536-row chunk, one query, k = 64 at a ragged depth and
+# gallery, k = 1, duplicate rows
+TOPK_CASES = (("cell", 1024, 400_000, 128, 10, "squaredeuclidean"),
+              ("one-chunk", 1024, 65_536, 128, 10, "euclidean"),
+              ("q1", 1, 400_000, 128, 10, "squaredeuclidean"),
+              ("ragged-k64", 300, 100_003, 90, 64, "euclidean"),
+              ("k1", 777, 20_000, 100, 1, "squaredeuclidean"),
+              ("duplicates", 256, 30_000, 128, 16, "squaredeuclidean"))
+
+
+def clustered_rows(n, d, seed, classes=1000, noise=0.8):
+    """[n, d] f32 unit rows around ``classes`` unit centres on the card,
+    as the retrieval benchmark draws them (close neighbours, near ties)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.randn(classes, d, generator=gen, device="cuda")
+    centres = centres / centres.norm(dim=1, keepdim=True)
+    cls = torch.randint(classes, (n,), generator=gen, device="cuda")
+    x = centres[cls] + torch.randn(n, d, generator=gen, device="cuda") * (
+        noise / d ** 0.5)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def topk_bound(nq, n, d, k):
+    """(bound_ms, bound_by, counts): the queries and the gallery read once
+    and the [Q, k] distances and rows written once, against the products
+    at the 3xTF32 rate plus the norms and 5 epilogue operations a pair (the
+    norm add, the fused -2x subtract, the clamp, the +0.0, the compare with
+    the row's k-th distance) at the f32 rate."""
+    nbytes = 4 * (nq * d + n * d) + 12 * nq * k
+    products = 2.0 * nq * n * d
+    ops = products + 2.0 * (nq + n) * d + 5.0 * nq * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (products / PRODUCT_OPS_PER_S["f32"]
+             + (ops - products) / F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            {"bytes": nbytes, "flop": ops})
+
+
+def topk_agree(tag, got, plain, q, g, k, metric):
+    """The kernel's (d, idx) against the plain walk's and a float64 top-
+    (k + 1) of the same rows: every distance within TOPK_GAP of the walk's
+    of the same rank and of the float64 distance of its own row; the index
+    sets equal to the walk's wherever the float64 k-th and (k + 1)-th
+    distances are more than TOPK_GAP apart, the order wherever every
+    neighbour is.  Returns (worst gap, rows checked by set, by order)."""
+    import torch
+    d, idx = got
+    pd, pi = plain
+    if d.shape != (q.shape[0], k) or idx.shape != (q.shape[0], k) or \
+            d.dtype != torch.float32 or idx.dtype != torch.int64:
+        fail(f"topk {tag}: shapes {tuple(d.shape)} {tuple(idx.shape)}")
+    if bool((idx < 0).any()) or bool((idx >= g.shape[0]).any()):
+        fail(f"topk {tag}: a row outside the gallery")
+    if bool(torch.signbit(d).any()):
+        fail(f"topk {tag}: a negative or -0.0 distance")
+    qd, gd = q.double(), g.double()
+    gsq = (gd * gd).sum(1)
+    f64 = torch.cat([torch.topk(
+        ((qd[i:i + 128] ** 2).sum(1)[:, None] + gsq[None]
+         - 2.0 * qd[i:i + 128] @ gd.T).clamp_(min=0.0),
+        min(k + 1, g.shape[0]), dim=1, largest=False).values
+        for i in range(0, q.shape[0], 128)])
+    own = ((qd[:, None, :] - gd[idx]) ** 2).sum(-1)
+    if metric == "euclidean":
+        f64, own = f64.sqrt(), own.sqrt()
+    gap_plain = float((d.double() - pd.double()).abs().max())
+    gap_own = float((d.double() - own).abs().max())
+    if not max(gap_plain, gap_own) <= TOPK_GAP:
+        fail(f"topk {tag}: distance gaps {gap_plain} (walk), {gap_own} "
+             f"(own rows) over {TOPK_GAP}")
+    steps = f64.diff(dim=1) > TOPK_GAP
+    set_rows = (steps[:, k - 1] if f64.shape[1] > k
+                else torch.ones(q.shape[0], dtype=torch.bool,
+                                device=q.device))
+    order_rows = steps[:, :k].all(dim=1) & set_rows
+    same_set = (idx.sort(dim=1).values == pi.sort(dim=1).values).all(dim=1)
+    if not bool(same_set[set_rows].all()):
+        fail(f"topk {tag}: a separated query's top-{k} set differs from "
+             "the walk's")
+    if not bool((idx == pi).all(dim=1)[order_rows].all()):
+        fail(f"topk {tag}: a separated query's top-{k} order differs from "
+             "the walk's")
+    return (max(gap_plain, gap_own), int(set_rows.sum()),
+            int(order_rows.sum()))
+
+
+def topk_padded_shard():
+    """The sharded index's shards: real rows and rows of 1e15 behind them
+    (parallel/sharded_eval.py), k over the real rows.  At squared
+    euclidean a padding row lies past 1e30 and the walk's empty slots (1e30,
+    -1) come first; at euclidean it enters the list.  The kernel against
+    the walk: rows equal, distances within 1e-6 of scale."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels.topk import (
+        sqdist_topk_kernel, sqdist_topk_plain)
+    out = {}
+    for real, pad, k in ((5, 3, 8), (4_000, 4, 10)):
+        g = torch.cat([clustered_rows(real, 128, 31 + real),
+                       torch.full((pad, 128), 1e15, device="cuda")])
+        q = clustered_rows(512, 128, 32 + real)
+        for metric in ("squaredeuclidean", "euclidean"):
+            d, idx = sqdist_topk_kernel(q, g, k, metric)
+            pd, pi = sqdist_topk_plain(q, g, k, metric)
+            if not torch.equal(idx, pi):
+                fail(f"topk padded shard {real}+{pad} {metric}: rows differ "
+                     "from the walk's")
+            torch.testing.assert_close(d, pd, rtol=1e-6, atol=1e-6)
+            out[f"{real}+{pad}-{metric}"] = {
+                "empty_slots": int((idx < 0).sum()),
+                "padding_rows": int((idx >= real).sum())}
+    print(f"[topk] padded shards, rows equal to the walk's "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def topk_index_path(q, g):
+    """``RetrievalIndex.query`` at the retrieval cell's shape and at one
+    chunk: one kernel launch and one ``topk.fused`` count a call, no
+    ``topk.walk``, the answer the kernel's own; the int8 gallery counts a
+    walk and launches nothing.  Returns (launches, counters, ms a call
+    host to host)."""
+    import numpy as np
+    from multimodal_similarity_tpu_torch.ops.kernels import (
+        LAUNCHES, reset_launch_counts)
+    from multimodal_similarity_tpu_torch.ops.kernels.topk import (
+        sqdist_topk_kernel)
+    from multimodal_similarity_tpu_torch.serving import RetrievalIndex
+    from multimodal_similarity_tpu_torch.utils import profiling
+    qn = q.cpu().numpy()
+    out = {}
+    for rows in (g.shape[0], 65_536):
+        index = RetrievalIndex(q.shape[1], metric="squaredeuclidean")
+        index.add(g[:rows].cpu().numpy())
+        index.query(qn, k=10)
+        reset_launch_counts()
+        profiling.reset_counts("topk.", ("fused", "walk"))
+        answers = [index.query(qn, k=10)[:2] for _ in range(3)]
+        counts = profiling.counters("topk.")
+        if LAUNCHES["sqdist_topk"] != 3 or counts != {"fused": 3, "walk": 0}:
+            fail(f"topk index path at {rows} rows: launches "
+                 f"{LAUNCHES['sqdist_topk']}, counters {counts}")
+        want = sqdist_topk_kernel(q, g[:rows], 10, "squaredeuclidean")
+        if not all(np.array_equal(a[1], want[1].cpu().numpy())
+                   and np.array_equal(a[0], want[0].cpu().numpy())
+                   for a in answers):
+            fail(f"topk index path at {rows} rows: the answer is not the "
+                 "kernel's")
+        out[rows] = {"launches": 3, "counters": counts,
+                     "call_ms": round(call_ms(
+                         lambda: index.query(qn, k=10), iters=5), 4)}
+        del index
+    int8 = RetrievalIndex(q.shape[1], metric="squaredeuclidean",
+                          int8_gallery=True)
+    int8.add(g[:65_536].cpu().numpy())
+    reset_launch_counts()
+    profiling.reset_counts("topk.", ("fused", "walk"))
+    int8.query(qn, k=10)
+    counts = profiling.counters("topk.")
+    if LAUNCHES["sqdist_topk"] or counts != {"fused": 0, "walk": 1}:
+        fail(f"topk index path, int8: launches {LAUNCHES['sqdist_topk']}, "
+             f"counters {counts}")
+    out["int8"] = counts
+    print(f"[topk] RetrievalIndex.query path {json.dumps(out)}", flush=True)
+    return out
+
+
+def topk_phase():
+    """The fused top-k (``sqdist_topk``) against its plain version, the
+    walk, at TOPK_CASES and on padded shards (``topk_agree``,
+    ``topk_padded_shard``); timed at the retrieval cell's shape beside its
+    bound, the walk and the library's selection alone (``torch.topk`` over
+    the whole f32 distance matrix); then ``RetrievalIndex.query``'s path.
+    Returns the timing row."""
+    import torch
+    from multimodal_similarity_tpu_torch.ops.kernels.topk import (
+        sqdist_topk_kernel, sqdist_topk_plain)
+    row = {}
+    for name, nq, n, d, k, metric in TOPK_CASES:
+        g = clustered_rows(n, d, seed=n + d)
+        q = clustered_rows(nq, d, seed=nq + d + 1)
+        if name == "duplicates":
+            # rows repeated further on, and queries repeated in the gallery
+            g[n // 2:n // 2 + 512] = g[:512]
+            g[1000:1000 + nq] = q
+        got = sqdist_topk_kernel(q, g, k, metric)
+        plain = sqdist_topk_plain(q, g, k, metric)
+        gap, sets, orders = topk_agree(name, got, plain, q, g, k, metric)
+        extra = ""
+        if name == "duplicates":
+            d0, i0 = got
+            first = (i0[:, 0] >= 1000) & (i0[:, 0] < 1000 + nq)
+            if not (bool(first.all()) and float(d0[:, 0].max()) <= 1e-5):
+                fail("topk duplicates: a query's own copy is not first at "
+                     "distance 0")
+            # a later copy in a top-k has its first copy before it
+            for r, c in ((i0 >= n // 2) & (i0 < n // 2 + 512)).nonzero(
+                    ).tolist():
+                if not bool((i0[r, :c] == i0[r, c] - n // 2).any()):
+                    fail("topk duplicates: a repeated row without its "
+                         "first copy before it")
+            extra = f", zero distances {float(d0[:, 0].max()):.3g}"
+        print(f"[topk] {name} Q={nq} N={n} d={d} k={k} {metric}: worst gap "
+              f"{gap:.3g} (limit {TOPK_GAP}), (set, order) rows checked "
+              f"({sets}, {orders}) of {nq}{extra}", flush=True)
+        if name == "cell":
+            lib_d = torch.cat([torch.cdist(q[i:i + 256], g) ** 2
+                               for i in range(0, nq, 256)])
+            lib = device_ms(lambda: torch.topk(lib_d, k, dim=1,
+                                               largest=False), reps=3,
+                            iters=3)
+            del lib_d
+            p_a = device_ms(lambda: sqdist_topk_plain(q, g, k, metric),
+                            reps=3, iters=3)
+            k_a = device_ms(lambda: sqdist_topk_kernel(q, g, k, metric))
+            k_b = device_ms(lambda: sqdist_topk_kernel(q, g, k, metric))
+            p_b = device_ms(lambda: sqdist_topk_plain(q, g, k, metric),
+                            reps=3, iters=3)
+            b_ms, b_by, counts = topk_bound(nq, n, d, k)
+            ms = min(k_a, k_b)
+            row = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "share": b_ms / ms, "plain_ms": min(p_a, p_b),
+                   "library_ms": lib, "call_ms": call_ms(
+                       lambda: sqdist_topk_kernel(q, g, k, metric))}
+            print(f"[timing] sqdist_topk Q={nq} N={n} d={d} k={k} f32 "
+                  + json.dumps(row) + " counts " + json.dumps(counts),
+                  flush=True)
+            cell = (q, g)
+        del got, plain
+        torch.cuda.empty_cache()
+    topk_padded_shard()
+    topk_index_path(*cell)
+    return row
+
+
 def sfu_rate():
     """Exponentials per second: SFU_PER_SM_CLOCK x SMs x the maximum SM
     clock that nvidia-smi reports."""
@@ -1449,6 +1699,15 @@ def drive_trainer(root, tag, train_fn, cfg, expect_val_loss=True,
              "trainer's")
     return res, launches, len(vals), exp, emb, torch.from_numpy(
         labels.astype(np.int64)).cuda()
+
+
+def expect_index_launches(tag, launches):
+    """No ``csrc/`` kernel but the fused top-k, which must have run (the
+    f32 index queries on the card take it)."""
+    if not launches["sqdist_topk"]:
+        fail(f"{tag}: no sqdist_topk launch on the index's f32 queries")
+    expect_launches(tag, launches, {name: 0 for name in launches
+                                    if name != "sqdist_topk"})
 
 
 def expect_launches(tag, launches, want):
@@ -3858,7 +4117,8 @@ def gallery_bytes(index):
 
 def index_cell(tag, gallery, queries, oracle, metric="euclidean",
                int8=False):
-    """One index on the card over ``gallery``: its one-time upload (int8:
+    """One index on the card over ``gallery`` (f32: the fused top-k; int8:
+    the walk): its one-time upload (int8:
     quantizing included), its device bytes, the warm query time of
     ``queries`` (CUDA events around 5 calls, each from the host array to
     the results on the host) and queries a second; the results against
@@ -3878,29 +4138,16 @@ def index_cell(tag, gallery, queries, oracle, metric="euclidean",
     ms = call_ms(lambda: index.query(queries, k=INDEX_K), iters=5,
                  warmup=1)
     d, idx, _ = index.query(queries, k=INDEX_K)
-    path = ("int8" if int8 else
-            "chunked" if len(index) > index.gallery_chunk else "dense")
+    path = "int8" if int8 else "fused"
     row = {"rows": len(index), "path": path, "metric": metric,
            "upload_s": round(upload_s, 4), "device_bytes": gallery_bytes(
                index), "query_ms": round(ms, 4),
            "queries_per_s": round(INDEX_QUERIES / ms * 1e3, 1)}
     # where the query's time goes: its device work alone (CUDA-graph
-    # replay); the dense path's product and selection apart
+    # replay)
     q = torch.from_numpy(queries).cuda()
     row["device_ms"] = round(device_ms(lambda: index._topk(q, INDEX_K),
                                        reps=3, iters=3), 4)
-    if path == "dense":
-        from multimodal_similarity_tpu_torch.ops.chunked_topk import (
-            ieee_f32, smallest_k)
-        from multimodal_similarity_tpu_torch.ops.distances import (
-            pairwise_distance)
-        with ieee_f32():
-            dist = pairwise_distance(q, index._device_gallery, metric)
-            row["product_ms"] = round(device_ms(lambda: pairwise_distance(
-                q, index._device_gallery, metric), reps=3, iters=3), 4)
-        row["select_ms"] = round(device_ms(lambda: smallest_k(
-            dist, INDEX_K), reps=3, iters=3), 4)
-        del dist
     od, oi, onext = oracle
     if int8:
         overlap = float(np.mean([len(set(a) & set(b)) / INDEX_K
@@ -3929,8 +4176,9 @@ def index_cell(tag, gallery, queries, oracle, metric="euclidean",
 def tf32_held(gallery, queries):
     """The dense, chunked and int8 queries with TF32 switched on
     process-wide, through the legacy flag and through ``fp32_precision``
-    where torch has it, give the bits they give with it off: the products
-    run in IEEE f32 whatever the setting."""
+    where torch has it, give the bits they give with it off: the fused
+    top-k forms its products in 3xTF32 and the int8 walk in IEEE f32,
+    whatever the setting."""
     import numpy as np
     import torch
     from multimodal_similarity_tpu_torch.serving import RetrievalIndex
@@ -4231,7 +4479,8 @@ def dispatcher_phase(results_pkl):
 
 
 def serving_phase(full_root, ckpts, pairsim_ckpt, hal_ckpt):
-    """Phase 17: slice 7 on the card; no ``csrc/`` launch."""
+    """Phase 17: slice 7 on the card; of the ``csrc/`` kernels only the
+    fused top-k (``sqdist_topk``), which every f32 index query takes."""
     from multimodal_similarity_tpu_torch.ops.kernels import (
         LAUNCHES, reset_launch_counts)
     t_phase = time.time()
@@ -4242,7 +4491,7 @@ def serving_phase(full_root, ckpts, pairsim_ckpt, hal_ckpt):
         export_phase(full_root, ckpts["sensors"], d)
     pkl = eval_cli_phase(full_root, ckpts, pairsim_ckpt, hal_ckpt)
     dispatcher_phase(pkl)
-    expect_launches("serving", dict(LAUNCHES), dict.fromkeys(LAUNCHES, 0))
+    expect_index_launches("serving", LAUNCHES)
     print(f"[serve] phase 17 {time.time() - t_phase:.1f} s", flush=True)
 
 
@@ -5227,7 +5476,8 @@ def sharded_phase(root, full_root, device="cuda"):
     and on its mesh the sharded retrieval index, the mesh-sharded cache of
     the full-budget sessions and the flagship's data-parallel fused and
     cached steps, each against its path without a mesh.  No ``csrc/``
-    kernel runs on these paths."""
+    kernel runs on these paths but the fused top-k of the f32 index
+    queries."""
     import torch
     import torch.distributed as dist
     from multimodal_similarity_tpu_torch.ops.kernels import (
@@ -5252,7 +5502,7 @@ def sharded_phase(root, full_root, device="cuda"):
                                                 card)}
     finally:
         dist.destroy_process_group()
-    expect_launches("p20", dict(LAUNCHES), dict.fromkeys(LAUNCHES, 0))
+    expect_index_launches("p20", LAUNCHES)
     print(f"[p20] phase 20 {time.time() - t0:.1f} s ({card}): "
           f"{json.dumps(out)}", flush=True)
     return out
@@ -5909,6 +6159,7 @@ def main():
     mining = mining_path()
     mining_times()
     sq_row, sq_err, sq_launches = sqdist_phase()
+    topk_row = topk_phase()
     sfu, sms, mhz = sfu_rate()
     print(f"[lifted] SFU rate {sfu:.4g} exp/s ({SFU_PER_SM_CLOCK} per SM "
           f"per clock x {sms} SMs x {mhz:.0f} MHz max SM clock)", flush=True)
@@ -5978,6 +6229,9 @@ def main():
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": launches[name],
                         "max_abs_err": errs[name], **main_rows[name]})
+    kernels.append({"name": "sqdist_topk", "route": "cuda",
+                    "source": "multimodal_similarity_tpu_torch/csrc/topk.cu",
+                    "replaces": None, **topk_row})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

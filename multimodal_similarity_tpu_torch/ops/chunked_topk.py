@@ -6,8 +6,16 @@ product and one k-smallest selection over the [Q, k + C] candidates.  The
 loop is plain Python with no host sync inside, so the chunks queue on the
 stream; memory is O(Q (k + C)), independent of N.
 
-Precision: every product here is IEEE f32 (``ieee_f32``: no TF32, whatever
-the process-wide setting), as the JAX package's products are.
+On a CUDA device, :func:`chunked_topk` at a euclidean metric and k <= 64
+runs instead one hand-written kernel over the whole gallery
+(``ops/kernels/topk.py``): the same exact top-k, in the same order, of
+distances whose products it forms in 3xTF32, with no [Q, C] block and no
+sort in device memory; ``chunk`` then does not apply.  The counters
+``topk.fused`` and ``topk.walk`` (``utils/profiling.py``) count the calls
+each way took.
+
+Precision: every product of the walk is IEEE f32 (``ieee_f32``: no TF32,
+whatever the process-wide setting), as the JAX package's products are.
 
 Ties: :func:`smallest_k` returns the lowest position first among equal
 distances (``jax.lax.top_k``'s rule, which ``torch.topk`` does not
@@ -23,7 +31,9 @@ import contextlib
 import torch
 
 from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
-from multimodal_similarity_tpu_torch.utils.profiling import span
+from multimodal_similarity_tpu_torch.ops.kernels.topk import (
+    sqdist_topk_kernel, takes_kernel)
+from multimodal_similarity_tpu_torch.utils.profiling import count, span
 
 _POS_INF = 1e30
 
@@ -98,7 +108,19 @@ def split_bf16_inner(q: torch.Tensor, g16: torch.Tensor) -> torch.Tensor:
 def chunked_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int = 32,
                  chunk: int = 4096, metric: str = "euclidean"):
     """-> (dists [Q, k], indices [Q, k]) ascending, exact; ``gallery`` on
-    the queries' device."""
+    the queries' device.  The kernel where :func:`takes_kernel` says so,
+    else :func:`walk_topk`."""
+    if takes_kernel(queries, metric, k):
+        count("topk.fused")
+        return sqdist_topk_kernel(queries, gallery, k, metric)
+    return walk_topk(queries, gallery, k, chunk, metric)
+
+
+def walk_topk(queries: torch.Tensor, gallery: torch.Tensor, k: int,
+              chunk: int, metric: str):
+    """The walk: ``chunk`` gallery rows a product, each merged into the
+    running top-k."""
+    count("topk.walk")
     q = queries.float()
     best_d, best_i = _init(q.shape[0], k, q.device)
     with ieee_f32():
@@ -124,6 +146,7 @@ def chunked_topk_quantized(queries: torch.Tensor, q_gallery: torch.Tensor,
     if metric not in ("euclidean", "squaredeuclidean"):
         raise NotImplementedError(
             f"int8 gallery supports euclidean metrics, not {metric!r}")
+    count("topk.walk")
     q = queries.float()
     xsq = (q * q).sum(dim=1, keepdim=True)                    # [Q, 1]
     s = scale.reshape(-1).float()

@@ -16,6 +16,8 @@ from multimodal_similarity_tpu_torch.ops.kernels.lifted import (
     fused_lifted_stats,
     lifted_loss_fused,
 )
+# imported for its launch counts: ops/chunked_topk.py routes to it
+from multimodal_similarity_tpu_torch.ops.kernels import topk  # noqa: F401
 
 
 def reset_launch_counts() -> None:

@@ -5,10 +5,11 @@ Each rank holds a contiguous block of the gallery's rows (rank r the rows
 queries against its own rows, with global indices; one all-gather brings
 every rank's candidates to every rank, in rank order, and a second top-k
 over them gives every rank the same [Q, k] answer.  No rank ever holds
-more than its own [Q, m] distances, and the local walk goes through
-``ops/chunked_topk.py`` in chunks of ``chunk`` rows, so not even that when
-the shard is larger (the JAX package's ``parallel/sharded_eval.py`` takes
-the dense [Q, m] block; the two give the same candidates).
+more than its own [Q, m] distances, and the local top-k goes through
+``ops/chunked_topk.py``: on a card the fused kernel, which holds no
+distance block at all, elsewhere the walk in chunks of ``chunk`` rows (the
+JAX package's ``parallel/sharded_eval.py`` takes the dense [Q, m] block;
+they give the same candidates).
 
 Ties: the merge selects with ``smallest_k``, which takes the lowest
 position among equal distances, as ``jax.lax.top_k`` does.  A position in

@@ -4,7 +4,9 @@
 ``batch_size`` events a forward, f32 or (``int8=True``) quantized on the
 host before the upload and dequantized on the device.  ``RetrievalIndex``
 holds a gallery of embeddings, f32 or int8 rows, uploaded to the device
-once per ``add()`` generation, and answers exact top-k queries: one
+once per ``add()`` generation, and answers exact top-k queries.  An f32
+gallery on a CUDA device at a euclidean metric and k <= 64 takes
+``ops/chunked_topk.py``'s one kernel over the whole gallery; otherwise one
 distance product and a top-k for a gallery of up to ``gallery_chunk`` rows,
 the chunked walk of ``ops/chunked_topk.py`` beyond it, and always that walk
 for an int8 gallery.  Indexes persist with ``save`` / ``load`` in the JAX
@@ -36,11 +38,12 @@ from multimodal_similarity_tpu_torch.data.device_feed import (
 from multimodal_similarity_tpu_torch.ops.chunked_topk import (
     chunked_topk, chunked_topk_quantized, ieee_f32, smallest_k)
 from multimodal_similarity_tpu_torch.ops.distances import pairwise_distance
+from multimodal_similarity_tpu_torch.ops.kernels.topk import takes_kernel
 from multimodal_similarity_tpu_torch.parallel.sharded_eval import (
     sharded_retrieval_topk, sharded_retrieval_topk_quantized)
 from multimodal_similarity_tpu_torch.train.steps import (
     embed_in_chunks, make_embed_fn)
-from multimodal_similarity_tpu_torch.utils.profiling import span
+from multimodal_similarity_tpu_torch.utils.profiling import count, span
 
 
 class EmbeddingService:
@@ -318,9 +321,11 @@ class RetrievalIndex:
                 q, qg, scale, gsq, k=k,
                 chunk=min(self.gallery_chunk, max(4096, len(self))),
                 metric=self.metric)
-        if len(self) > self.gallery_chunk:
+        if len(self) > self.gallery_chunk or takes_kernel(q, self.metric,
+                                                          k):
             return chunked_topk(q, gallery, k=k, chunk=self.gallery_chunk,
                                 metric=self.metric)
+        count("topk.walk")
         with ieee_f32(), span("topk.product"):
             d = pairwise_distance(q, gallery, self.metric)
         with span("topk.select"):
