@@ -3,17 +3,17 @@
 (``scripts/CUB_tensorflow.sh``).
 
 Run:  python -m multimodal_similarity_tpu_torch.train.trainers.debug_CUB --DATA_ROOT <dir> ...
-(``--device cpu`` runs on the CPU; the default is ``cuda``.)
+(``--device cpu`` runs on the CPU, the default is ``cuda``; ``--crop``
+as ``base_CUB``'s, default 224.)
 """
 
 from __future__ import annotations
 
-import argparse
 import sys
 
 from multimodal_similarity_tpu_torch.configs import TrainConfig
 from multimodal_similarity_tpu_torch.train.trainers.base_CUB import (
-    train as _train)
+    parse_cli, train as _train)
 
 
 def train(cfg: TrainConfig, **kw):
@@ -21,12 +21,9 @@ def train(cfg: TrainConfig, **kw):
 
 
 def main(argv=None):
-    """The trainer CLI: the JAX trainer's flags, plus ``--device`` (default
-    ``cuda``)."""
-    p = argparse.ArgumentParser(add_help=False)
-    p.add_argument("--device", default=None)
-    args, rest = p.parse_known_args(argv)
-    train(TrainConfig.parse(rest), device=args.device)
+    """The trainer CLI: ``base_CUB``'s (``parse_cli``)."""
+    args, cfg = parse_cli(argv)
+    train(cfg, crop=args.crop, device=args.device)
 
 
 if __name__ == "__main__":

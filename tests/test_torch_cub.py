@@ -505,16 +505,17 @@ def test_cli_runs_on_cpu(tmp_path, rng, trainer):
     """``python -m ...<trainer> --device cpu`` on a synthetic directory:
     finite losses, a validation and a checkpoint."""
     root = tmp_path / "data"
+    args = ["--device", "cpu", "--DATA_ROOT", str(root), "--name", "cli",
+            "--emb_dim", "8", "--max_epochs", "3", "--triplet_per_batch",
+            "12", "--network", "conv", "--silent_mode"]
     if trainer in ("base_model_CUB", "pddm_CUB"):
         jax_cub.generate_synthetic_cub(str(root), n_classes=8, per_class=10,
                                        feat_dim=32, att_dim=12, seed=1)
     else:
         root.mkdir()
-        for k, v in _images(rng, size=64).items():   # the CLI crops 56
+        for k, v in _images(rng, size=64).items():
             np.save(root / f"{k}.npy", v)
-    args = ["--device", "cpu", "--DATA_ROOT", str(root), "--name", "cli",
-            "--emb_dim", "8", "--max_epochs", "3", "--triplet_per_batch",
-            "12", "--network", "conv", "--silent_mode"]
+        args += ["--crop", "56"]       # the default, 224, needs 224 pixels
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-m",
                     f"multimodal_similarity_tpu_torch.train.trainers."
@@ -526,6 +527,25 @@ def test_cli_runs_on_cpu(tmp_path, rng, trainer):
     assert all(np.isfinite(losses)) and vals
     assert all(np.isfinite(v).all() for v in vals)
     assert any(n.startswith("cli.ckpt-") for n in os.listdir(run_dir))
+
+
+@pytest.mark.parametrize("trainer", ["base_CUB", "debug_CUB"])
+def test_cli_crop_defaults_to_the_references(monkeypatch, trainer):
+    """``--crop`` reaches ``train`` as given, and is the reference's 224
+    when it is left out; ``--device`` beside it, the rest a
+    ``TrainConfig``."""
+    mod = base_CUB if trainer == "base_CUB" else debug_CUB
+    seen = []
+    monkeypatch.setattr(mod, "train" if trainer == "base_CUB" else "_train",
+                        lambda cfg, **kw: seen.append((cfg, kw)))
+    mod.main(["--network", "inception_v2", "--emb_dim", "64"])
+    mod.main(["--crop", "96", "--device", "cpu", "--batch_size", "32"])
+    (cfg0, kw0), (cfg1, kw1) = seen
+    assert base_CUB.CROP == 224 and kw0["crop"] == 224
+    assert kw0.get("device") is None
+    assert cfg0.network == "inception_v2" and cfg0.emb_dim == 64
+    assert kw1["crop"] == 96 and kw1["device"] == "cpu"
+    assert cfg1.batch_size == 32
 
 
 def test_port_modules_import_no_jax():

@@ -3,8 +3,9 @@ span records nothing while no profiler runs; under ``torch.profiler`` the
 spans nest with their parents and units, a session closes when the
 profile stops, the counters (the device cache's and the native path's
 among them) add up, the flagship's cached step gives the same scalars
-with recording on as off and opens every phase once a step, and a
-``--profile_dir`` trace holds the spans on the trace's own clock."""
+with recording on as off and opens every phase once a step, so do the
+CUB trainer's steps, and a ``--profile_dir`` trace holds the spans on the
+trace's own clock."""
 
 import itertools
 import json
@@ -24,8 +25,10 @@ from multimodal_similarity_tpu_torch.train.cached_steps import (
     make_cached_body_step)
 from multimodal_similarity_tpu_torch.train.trainers import (
     multimodal_model as mm)
+from multimodal_similarity_tpu_torch.train.trainers import base_CUB
 from multimodal_similarity_tpu_torch.train.trainers._honda import (
     HondaExperiment)
+from multimodal_similarity_tpu_torch.utils.logging import MetricsLogger
 from multimodal_similarity_tpu_torch.utils import profiling
 from multimodal_similarity_tpu_torch.utils.profiling import (
     Session, Span, count, span)
@@ -299,3 +302,55 @@ def test_profile_dir_trace_holds_the_spans(tmp_path):
                                         <= outer["ts"] + outer["dur"] + 1)
     assert os.path.basename(prof.trace_path) == "trace_steps2-2.pt.trace.json"
     assert ph["dur"] > 0 and outer["dur"] > 0
+
+
+# -- the CUB trainer's step ----------------------------------------------------
+
+CUB_PHASES = ("cub.sample", "cub.upload", "cub.crop", "cub.tower",
+              "cub.loss", "cub.backward", "cub.optimizer")
+
+
+def _cub_steps(result_dir, n: int):
+    """``n`` steps of ``CUBTrainer`` (the ConvBackbone tower) from the
+    seeds; -> each step's loss."""
+    cfg = TrainConfig(name="trace", network="conv", emb_dim=8,
+                      batch_size=32, learning_rate=1e-2, seed=5,
+                      silent_mode=True).resolve()
+    rng = torch.Generator().manual_seed(0)
+    labels = torch.arange(4).repeat_interleave(12).numpy()
+    images = torch.rand(48, 20, 20, 3, generator=rng).numpy()
+    model = base_CUB.build_model(cfg, "cpu")
+    opt = base_CUB.build_optimizer(cfg.optimizer, model, cfg.learning_rate)
+    trainer = base_CUB.CUBTrainer(cfg, model, opt, images, labels, 16,
+                                  "cpu", MetricsLogger(result_dir))
+    return [float(trainer.step(cfg.learning_rate)["loss"])
+            for _ in range(n)]
+
+
+def test_cub_spans_nest_under_the_step(tmp_path):
+    """Without a profile the CUB steps record nothing; under one each step
+    is a ``cub.step`` unit holding its seven phases once, in order, with
+    ``cub.log`` after it; the losses are the same either way, and the
+    counters hold the images and bytes uploaded."""
+    before = profiling.session()
+    off = _cub_steps(str(tmp_path / "off"), 3)
+    assert profiling.session() is before
+    with _cpu_profile():
+        on = _cub_steps(str(tmp_path / "on"), 3)
+    assert on == off
+    sess = profiling.session()
+    names = [s.name for s in sess.spans]
+    steps = [i for i, n in enumerate(names) if n == "cub.step"]
+    assert len(steps) == 3 and names.count("cub.log") == 3
+    for i in steps:
+        step = sess.spans[i]
+        assert step.parent is None and step.unit is not None
+        inside = [s for s in sess.spans if s.unit == step.unit]
+        assert [s.name for s in inside] == ["cub.step", *CUB_PHASES]
+        assert all(sess.spans[s.parent] is step for s in inside[1:])
+        log = sess.spans[i + len(CUB_PHASES) + 1]
+        assert log.name == "cub.log" and log.parent is None
+        assert log.host_start >= step.host_end
+    assert sess.counters["cub.images"] == 3 * 32
+    assert sess.counters["cub.upload_bytes"] == 3 * 32 * (20 * 20 * 3 * 4
+                                                          + 8)
